@@ -1,0 +1,61 @@
+"""Bundled datasets, read from the repository's ``data/*.npz``.
+
+The reference lazy-loads nine .rda datasets (reference: data/*.rda); the
+repository carries them converted to .npz.
+
+Dataset roles:
+  evp_peparray   641 peptide-array rows, PROBE_SEQUENCE 12-mers (quick start)
+  h3n2sample     8,103 H3N2 HA proteins (~566 aa) with clade labels
+  h3n2ha1415     11,517 H3N2 HA sequences (benchmark input)
+  allunique      65,339 unique 12-mer peptides (large MH stress set)
+  adenovirus/parvovirus/polyomavirus/mitochondria/herv  peparray panels
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+DATASETS = (
+    "adenovirus",
+    "allunique",
+    "evp_peparray",
+    "h3n2ha1415",
+    "h3n2sample",
+    "herv",
+    "mitochondria",
+    "parvovirus",
+    "polyomavirus",
+)
+
+# canonical column holding the AA sequences per dataset
+SEQUENCE_COLUMN = {
+    "adenovirus": "PROBE_SEQUENCE",
+    "allunique": "peptides",
+    "evp_peparray": "PROBE_SEQUENCE",
+    "h3n2ha1415": "sequence",
+    "h3n2sample": "sequence",
+    "herv": "PROBE_SEQUENCE",
+    "mitochondria": "PROBE_SEQUENCE",
+    "parvovirus": "PROBE_SEQUENCE",
+    "polyomavirus": "PROBE_SEQUENCE",
+}
+
+_REPO_DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "data"
+)
+
+
+def load_dataset(name: str) -> dict[str, np.ndarray]:
+    """Load a bundled dataset as {column: array}."""
+    if name not in DATASETS:
+        raise ValueError(f"unknown dataset {name!r}; available: {DATASETS}")
+    with np.load(os.path.join(_REPO_DATA, f"{name}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_sequences(name: str, limit: int | None = None) -> list[str]:
+    """The dataset's AA sequence column as a list of python strings."""
+    seqs = load_dataset(name)[SEQUENCE_COLUMN[name]]
+    return [str(s) for s in seqs[:limit] if s is not None]

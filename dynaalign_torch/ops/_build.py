@@ -1,0 +1,80 @@
+"""Build the CUDA sources in ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
+own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the repository root, named by the hash of its source
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+The libraries are loaded with ``ctypes``.  A failed build raises: there is
+no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    path: str
+    log: str  # nvcc's output (ptxas registers/spills); "" when reused
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc`` (default /usr/local/cuda), else PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and PATH); the CUDA kernels "
+            "are built at first use and need the CUDA toolkit"
+        )
+    return found
+
+
+def target(name: str) -> str:
+    """The library path for ``csrc/<name>.cu`` at its current content."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def nvcc_command(name: str, out: str) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out,
+            os.path.join(CSRC, f"{name}.cu")]
+
+
+def build(name: str) -> Built:
+    """Build ``csrc/<name>.cu`` unless its library is already there."""
+    out = target(name)
+    if os.path.exists(out):
+        return Built(out, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return Built(out, proc.stdout)
+
+
+def load(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(build(name).path)

@@ -1,0 +1,222 @@
+"""The port's public surface on the CPU against the JAX package and the C++
+oracle: all-pairs NW, host encoding, BLOSUM tables, datasets, errors, the
+device rule, and the package's independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402,F401
+
+import dynaalign_tpu as dj  # noqa: E402
+from dynaalign_tpu import blosum as jblosum  # noqa: E402
+from dynaalign_tpu.encode import ALPHABET as JALPHABET  # noqa: E402
+from dynaalign_tpu.encode import bucket_by_length as jbucket  # noqa: E402
+from dynaalign_tpu.encode import encode as jencode  # noqa: E402
+from dynaalign_tpu import oracle as joracle  # noqa: E402
+from dynaalign_tpu.io import datasets as jdatasets  # noqa: E402
+
+import dynaalign_torch as dt  # noqa: E402
+from dynaalign_torch import blosum  # noqa: E402
+from dynaalign_torch.encode import (  # noqa: E402
+    ALPHABET,
+    PAD_ID,
+    InvalidSequenceError,
+    bucket_by_length,
+    decode,
+    encode,
+)
+from dynaalign_torch.io import datasets  # noqa: E402
+
+PKG_DIR = os.path.dirname(os.path.abspath(dt.__file__))
+ENTRY_POINTS = [dt.similarity_nw, dt.similarity_nw_bucketed]
+
+
+def _mixed():
+    rng = np.random.default_rng(21)
+    lens = np.concatenate([rng.integers(1, 20, 10), rng.integers(60, 140, 8)])
+    seqs = ["".join(rng.choice(list(ALPHABET), size=k)) for k in lens]
+    return seqs + ["A", "W*"]
+
+
+SETS = {
+    "evp160": lambda: datasets.load_sequences("evp_peparray", 160),
+    "mixed": _mixed,
+}
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_all_pairs_equal_jax_and_oracle(name, fn):
+    seqs = SETS[name]()
+    got = fn(seqs, device="cpu")
+    assert got.shape == (len(seqs), len(seqs)) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, dj.similarity_nw(seqs))
+    np.testing.assert_array_equal(got, joracle.nw_similarity(seqs))
+
+
+@pytest.mark.parametrize("gaps", [(5, 1), (12, 2)])
+def test_all_pairs_matrix_and_gaps(gaps):
+    seqs = _mixed()[:12]
+    got = dt.similarity_nw(seqs, "BLOSUM45", *gaps, device="cpu", chunk=9)
+    np.testing.assert_array_equal(
+        got, joracle.nw_similarity(seqs, "BLOSUM45", *gaps)
+    )
+
+
+def test_port_oracle_equals_jax_oracle():
+    from dynaalign_torch import oracle
+
+    seqs = _mixed()[:10]
+    for matrix, gaps in [("BLOSUM62", (10, 4)), ("BLOSUM90", (5, 1))]:
+        np.testing.assert_array_equal(
+            oracle.nw_similarity(seqs, matrix, *gaps),
+            joracle.nw_similarity(seqs, matrix, *gaps),
+        )
+    assert oracle.nw_pair("ARND", "AR*") == joracle.nw_pair("ARND", "AR*")
+    with pytest.raises(ValueError, match="Invalid substitution matrix"):
+        oracle.nw_pair("A", "A", "PAM250")
+    with pytest.raises(ValueError, match="Invalid amino acid"):
+        oracle.nw_similarity(["AJ", "A"])
+
+
+def test_h3n2_equals_oracle():
+    seqs = datasets.load_sequences("h3n2sample", 16)
+    got = dt.similarity_nw(seqs, device="cpu")
+    np.testing.assert_array_equal(got, joracle.nw_similarity(seqs))
+    assert np.all(np.diag(got) == 1.0)
+
+
+def test_chunked_stream_equals_one_launch():
+    seqs = _mixed()
+    one = dt.similarity_nw(seqs, device="cpu", chunk=10**6)
+    for fn in ENTRY_POINTS:
+        np.testing.assert_array_equal(fn(seqs, device="cpu", chunk=64), one)
+
+
+def test_lower_index_is_sequence_one():
+    """Tie-breaking is not symmetric under a swap: (i, j) with i < j must
+    align s_i as sequence 1, and the matrix holds that value both ways."""
+    rng = np.random.default_rng(2)
+    for _ in range(200):
+        s1, s2 = ("".join(rng.choice(list("ACDW"), size=k))
+                  for k in rng.integers(2, 9, 2))
+        if joracle.nw_pair(s1, s2) != joracle.nw_pair(s2, s1):
+            break
+    else:
+        pytest.fail("no orientation-sensitive pair found")
+    for fn in ENTRY_POINTS:
+        got = fn([s1, s2], device="cpu")
+        assert got[0, 1] == got[1, 0] == joracle.nw_pair(s1, s2)
+        got = fn([s2, s1], device="cpu")
+        assert got[0, 1] == got[1, 0] == joracle.nw_pair(s2, s1)
+
+
+@pytest.mark.parametrize("name", jblosum.MATRIX_NAMES)
+def test_get_matrix_equals_jax(name):
+    for padded in (True, False):
+        got = blosum.get_matrix(name, padded=padded)
+        assert got.dtype == torch.int32
+        ref = jblosum.get_matrix(name, padded=padded)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        np.testing.assert_array_equal(
+            blosum.from_numpy(ref, "cpu").numpy(), ref
+        )
+    assert dt.MATRIX_NAMES == jblosum.MATRIX_NAMES
+
+
+@pytest.mark.parametrize("kw", [{}, {"pad_to": 90}, {"pad_multiple": 8}])
+def test_encode_equals_jax(kw):
+    rng = np.random.default_rng(4)
+    seqs = ["".join(rng.choice(list(ALPHABET), size=k))
+            for k in rng.integers(1, 60, 20)]
+    got, ref = encode(seqs, **kw), jencode(seqs, **kw)
+    for field in ("ascii", "indices", "lengths"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(ref, field))
+        assert getattr(got, field).dtype == getattr(ref, field).dtype
+    assert decode(got.indices[3]) == seqs[3]
+    assert (ALPHABET, PAD_ID) == (JALPHABET, 24)
+    lazy = ["AJ", "OU"]
+    np.testing.assert_array_equal(
+        encode(lazy, validate=False).indices,
+        jencode(lazy, validate=False).indices,
+    )
+
+
+def test_bucket_by_length_equals_jax():
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list("ACDE"), size=k))
+            for k in [1, 16, 17, 32, 33, 64, 100, 5, 300]]
+    got = bucket_by_length(seqs)
+    ref = jbucket(seqs)
+    assert len(got) == len(ref)
+    for (gp, ge), (rp, re_) in zip(got, ref):
+        np.testing.assert_array_equal(gp, rp)
+        np.testing.assert_array_equal(ge.indices, re_.indices)
+    with pytest.raises(ValueError, match="max bucket edge"):
+        bucket_by_length(["A" * 40], bucket_edges=(16, 32))
+
+
+@pytest.mark.parametrize("name", ["evp_peparray", "h3n2sample"])
+def test_load_sequences_equals_jax(name):
+    assert datasets.load_sequences(name, 50) == jdatasets.load_sequences(
+        name, 50
+    )
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("args, match", [
+    (([],), "Input sequences vector cannot be empty"),
+    ((["ARND"], "BLOSUM13"), "Invalid substitution matrix name: BLOSUM13"),
+    ((["ARND", "AJRN"],), "Invalid amino acid 'J'"),
+    ((["ARUN"],), "Invalid amino acid 'U'"),
+    ((["ARND", "xO"],), "Invalid amino acid 'x'"),
+])
+def test_value_errors(fn, args, match):
+    with pytest.raises(ValueError, match=match):
+        fn(*args, device="cpu")
+
+
+def test_invalid_sequence_error_is_value_error():
+    with pytest.raises(InvalidSequenceError):
+        encode(["AOA"])
+    assert issubclass(InvalidSequenceError, ValueError)
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)
+def test_default_device_without_card_raises(fn, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(["ARND", "ARNE"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(["ARND", "ARNE"], device="cuda")
+
+
+def test_import_does_not_load_jax():
+    code = (
+        "import dynaalign_torch, sys; "
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "for m in sys.modules)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=os.path.dirname(PKG_DIR))
+
+
+def test_no_source_mentions_jax_or_the_jax_package():
+    offenders = []
+    for root, dirs, files in os.walk(PKG_DIR):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            path = os.path.join(root, f)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            for word in (b"import jax", b"from jax", b"dynaalign_tpu"):
+                if word in data:
+                    offenders.append((path, word))
+    assert offenders == []

@@ -1,0 +1,310 @@
+"""The port's batched NW (plain version, kernel source, wrapper, dispatch,
+build) against the JAX package and the C++ oracle, on the CPU.
+
+Every comparison is exact: the reference is bit-exact.
+"""
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from dynaalign_tpu import blosum as jblosum  # noqa: E402
+from dynaalign_tpu import oracle as joracle  # noqa: E402
+from dynaalign_tpu.ops.nw import nw_similarity_batch as jax_scan  # noqa: E402
+from dynaalign_tpu.ops.nw_pallas import (  # noqa: E402
+    nw_similarity_batch_pallas,
+)
+from dynaalign_torch import blosum  # noqa: E402
+from dynaalign_torch.encode import ALPHABET, encode  # noqa: E402
+from dynaalign_torch.ops import (  # noqa: E402
+    MAX_MP1,
+    _build,
+    nw_batch,
+    nw_batch_tiled,
+    nw_cuda,
+    pick_nw_backend,
+)
+from dynaalign_torch.ops.nw import NWResult, nw_similarity_batch  # noqa: E402
+
+AA20 = "ARNDCQEGHILKMFPSTWYV"
+GAPS = [(10, 4), (5, 1), (12, 2)]
+
+
+def _seqs(rng, n, lo, hi, alphabet=ALPHABET):
+    return ["".join(rng.choice(list(alphabet), size=k))
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def _batch(a_seqs, b_seqs, pad_a=None, pad_b=None):
+    """numpy int32 (a, a_len, b, b_len), PAD_ID-padded."""
+    ea, eb = encode(a_seqs, pad_to=pad_a), encode(b_seqs, pad_to=pad_b)
+    return ea.indices, ea.lengths, eb.indices, eb.lengths
+
+
+def _port(arrs, matrix="BLOSUM62", go=10, ge=4):
+    t = [torch.from_numpy(x) for x in arrs]
+    sub = blosum.from_numpy(jblosum.get_matrix(matrix), "cpu")
+    res = nw_similarity_batch(*t, sub, gap_open=go, gap_ext=ge)
+    return res.matches.numpy(), res.length.numpy()
+
+
+def _jax(fn, arrs, matrix="BLOSUM62", go=10, ge=4, **kw):
+    res = fn(*[jnp.asarray(x) for x in arrs],
+             jnp.asarray(jblosum.get_matrix(matrix)),
+             gap_open=go, gap_ext=ge, **kw)
+    return np.asarray(res.matches), np.asarray(res.length)
+
+
+def _oracle(pairs, matrix="BLOSUM62", go=10, ge=4):
+    return np.array([joracle.nw_pair(a, b, matrix, go, ge) for a, b in pairs])
+
+
+@pytest.mark.parametrize("gaps", GAPS)
+@pytest.mark.parametrize("matrix", jblosum.MATRIX_NAMES)
+def test_plain_equals_jax_scan_and_pallas(matrix, gaps):
+    """12-80 aa fuzz, pad 87 (m+1 = 88, sublane-aligned for Pallas)."""
+    go, ge = gaps
+    rng = np.random.default_rng(
+        10 * jblosum.MATRIX_NAMES.index(matrix) + GAPS.index(gaps))
+    seqs = _seqs(rng, 16, 12, 80)
+    arrs = _batch(seqs[:8], seqs[8:], 87, 87)
+    got = _port(arrs, matrix, go, ge)
+    for ref in (
+        _jax(jax_scan, arrs, matrix, go, ge),
+        _jax(nw_similarity_batch_pallas, arrs, matrix, go, ge,
+             interpret=True),
+    ):
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("case", ["ambiguity", "length1", "unequal"])
+def test_plain_equals_oracle(case):
+    """B/Z/X/* codes, length-1 sequences, and m != n padded widths."""
+    rng = np.random.default_rng(7)
+    if case == "ambiguity":
+        a = _seqs(rng, 12, 5, 40, "BZX*AR")
+        b = _seqs(rng, 12, 5, 40, "BZX*ND")
+    elif case == "length1":
+        a = ["A", "W", "*", "B", "AR", "W"] + _seqs(rng, 4, 1, 3)
+        b = ["A", "A", "*", "WWWW", "R", "CWC"] + _seqs(rng, 4, 1, 3)
+    else:
+        a = _seqs(rng, 10, 3, 20)
+        b = _seqs(rng, 10, 30, 70)
+    mt, ln = _port(_batch(a, b, None, 75 if case == "unequal" else None))
+    sims = NWResult(torch.from_numpy(mt), torch.from_numpy(ln)).similarity()
+    np.testing.assert_array_equal(sims, _oracle(list(zip(a, b))))
+
+
+def test_unequal_widths_equal_jax_scan():
+    rng = np.random.default_rng(3)
+    arrs = _batch(_seqs(rng, 6, 1, 30), _seqs(rng, 6, 40, 90), 31, 95)
+    for got, ref in zip(_port(arrs, "BLOSUM80", 5, 1),
+                        _jax(jax_scan, arrs, "BLOSUM80", 5, 1)):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_empty_pair_is_nan_like_jax():
+    arrs = (np.full((2, 3), 24, np.int32), np.array([0, 0], np.int32),
+            np.full((2, 3), 24, np.int32), np.array([0, 2], np.int32))
+    arrs[2][1, :2] = [0, 1]
+    got, ref = _port(arrs), _jax(jax_scan, arrs)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    sims = NWResult(*[torch.from_numpy(x) for x in got]).similarity()
+    assert np.isnan(sims[0]) and sims[1] == 0.0
+    assert sims.dtype == np.float64
+
+
+# The kernel source compiled as host C++: one thread per block, blocks in
+# turn.  This checks the kernel's DP arithmetic here, where no nvcc exists.
+_HOST_SHIM = r"""
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(x)
+struct Dim3 { int x; };
+static Dim3 threadIdx, blockIdx, blockDim;
+static inline void __syncthreads() {}
+#include "nw_gotoh.cu"
+extern "C" void nw_gotoh_host(const int* a_idx, const int* a_len,
+    const int* b_idx, const int* b_len, const int* sub, int B, int M, int N,
+    int go, int ge, int* scratch, int* mt, int* ln) {
+  blockDim.x = 1;
+  threadIdx.x = 0;
+  for (int p = 0; p < B; ++p) {
+    blockIdx.x = p;
+    nw_gotoh_kernel(a_idx, a_len, b_idx, b_len, sub, B, M, N, go, ge,
+                    scratch, mt, ln);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    d = tmp_path_factory.mktemp("nw_host")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
+    so = d / "libnw_host.so"
+    subprocess.run(
+        ["g++", "-O2", "-shared", "-fPIC", "-Wall", "-Werror", "-x", "c++",
+         "-I", _build.CSRC, str(d / "shim.cpp"), "-o", str(so)],
+        check=True,
+    )
+    fn = ctypes.CDLL(str(so)).nw_gotoh_host
+    fn.restype = None
+
+    def run(arrs, sub_np, go, ge):
+        a, la, b, lb = [np.ascontiguousarray(x, np.int32) for x in arrs]
+        bsz, m = a.shape
+        n = b.shape[1]
+        sub_c = np.ascontiguousarray(sub_np, np.int32)
+        scratch = np.empty(6 * (n + 1) * bsz, np.int32)
+        mt, ln = np.empty(bsz, np.int32), np.empty(bsz, np.int32)
+        ptr = [x.ctypes.data_as(ctypes.c_void_p)
+               for x in (a, la, b, lb, sub_c)]
+        fn(*ptr, bsz, m, n, go, ge,
+           *[x.ctypes.data_as(ctypes.c_void_p) for x in (scratch, mt, ln)])
+        return mt, ln
+
+    return run
+
+
+@pytest.mark.parametrize("case", [
+    ("BLOSUM62", (10, 4), 12, 80, 12, 80),
+    ("BLOSUM45", (5, 1), 1, 40, 1, 40),
+    ("BLOSUM100", (12, 2), 1, 3, 30, 70),  # m != n, length-1 rows
+    ("BLOSUM90", (10, 4), 50, 90, 1, 10),
+])
+def test_kernel_source_equals_plain(host_kernel, case):
+    matrix, (go, ge), alo, ahi, blo, bhi = case
+    rng = np.random.default_rng(11)
+    arrs = _batch(_seqs(rng, 24, alo, ahi), _seqs(rng, 24, blo, bhi))
+    sub_np = jblosum.get_matrix(matrix)
+    got = host_kernel(arrs, sub_np, go, ge)
+    ref = _port(arrs, matrix, go, ge)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_kernel_source_equals_oracle_on_h3n2(host_kernel):
+    from dynaalign_torch.io.datasets import load_sequences
+
+    seqs = load_sequences("h3n2sample", 8)
+    pairs = [(seqs[i], seqs[j]) for i in range(8) for j in range(i, 8)]
+    arrs = _batch([p[0] for p in pairs], [p[1] for p in pairs])
+    mt, ln = host_kernel(arrs, jblosum.get_matrix("BLOSUM62"), 10, 4)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sims = mt.astype(np.float64) / ln
+    np.testing.assert_array_equal(sims, _oracle(pairs))
+
+
+def test_dispatch_routes_by_device():
+    assert pick_nw_backend("cpu", 5000, 5000) == "torch"
+    assert pick_nw_backend("cuda", 566, 566) == "cuda"
+    assert pick_nw_backend(torch.device("cuda", 0), MAX_MP1 - 1, 15) == "cuda"
+    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+        pick_nw_backend("cuda", MAX_MP1, MAX_MP1)
+    with pytest.raises(NotImplementedError, match="_kernel_xl"):
+        pick_nw_backend("cuda", 15, MAX_MP1)
+
+
+def test_nw_batch_and_tiled_on_cpu_equal_plain():
+    rng = np.random.default_rng(5)
+    arrs = _batch(_seqs(rng, 6, 2, 30), _seqs(rng, 6, 2, 30), 31, 31)
+    t = [torch.from_numpy(x) for x in arrs]
+    sub = blosum.get_matrix("BLOSUM50")
+    ref = nw_similarity_batch(*t, sub)
+    got = nw_batch(*t, sub)
+    tiled = nw_batch_tiled(*[x.reshape(2, 3, *x.shape[1:]) for x in t], sub)
+    assert tiled.matches.shape == (2, 3)
+    for res in (got, NWResult(tiled.matches.reshape(-1),
+                              tiled.length.reshape(-1))):
+        assert torch.equal(res.matches, ref.matches)
+        assert torch.equal(res.length, ref.length)
+
+
+def test_wrapper_on_cpu_runs_plain_without_launching():
+    rng = np.random.default_rng(6)
+    t = [torch.from_numpy(x)
+         for x in _batch(_seqs(rng, 4, 1, 20), _seqs(rng, 4, 1, 20))]
+    sub = blosum.get_matrix()
+    before = nw_cuda.LAUNCHES
+    got = nw_cuda.nw_similarity_batch_cuda(*t, sub, gap_open=5, gap_ext=1)
+    ref = nw_similarity_batch(*t, sub, gap_open=5, gap_ext=1)
+    assert nw_cuda.LAUNCHES == before
+    assert torch.equal(got.matches, ref.matches)
+    assert torch.equal(got.length, ref.length)
+
+
+def _good():
+    a = torch.zeros((4, 6), dtype=torch.int32)
+    n = torch.full((4,), 6, dtype=torch.int32)
+    return [a, n, a.clone(), n.clone(), blosum.get_matrix()]
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: x.__setitem__(0, x[0].long()), TypeError),
+    (lambda x: x.__setitem__(1, x[1][:3]), ValueError),
+    (lambda x: x.__setitem__(2, x[2].t().contiguous().t()), ValueError),
+    (lambda x: x.__setitem__(2, x[2][:2]), ValueError),
+    (lambda x: x.__setitem__(4, x[4][:24, :24].contiguous()), ValueError),
+    (lambda x: x.__setitem__(0, x[0].numpy()), TypeError),
+    (lambda x: x[1].__setitem__(2, 7), ValueError),  # a_len > M
+    (lambda x: x[3].__setitem__(0, 7), ValueError),  # b_len > N
+    (lambda x: x[1].__setitem__(3, -1), ValueError),
+    (lambda x: x[3].__setitem__(1, -1), ValueError),
+])
+def test_wrapper_rejects_bad_inputs(bad, err):
+    args = _good()
+    bad(args)
+    with pytest.raises(err):
+        nw_cuda.nw_similarity_batch_cuda(*args)
+
+
+def test_wrapper_rejects_other_devices():
+    args = [x.to("meta") for x in _good()]
+    with pytest.raises(ValueError, match="no NW kernel"):
+        nw_cuda.nw_similarity_batch_cuda(*args)
+    with pytest.raises(ValueError, match="no NW kernel"):
+        nw_batch(*args)
+
+
+def test_launch_pointers_are_void_p():
+    """ctypes passes an undeclared int as 32 bits and cuts a pointer."""
+    types = nw_cuda.LAUNCH_ARGTYPES
+    assert len(types) == 14
+    for i in (0, 1, 2, 3, 4, 10, 11, 12, 13):
+        assert types[i] is ctypes.c_void_p
+    for i in range(5, 10):
+        assert types[i] is ctypes.c_int
+
+
+def test_build_targets_hopper_and_hashes_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    first = _build.target("k")
+    src.write_text("// v2\n")
+    assert _build.target("k") != first
+    assert os.path.dirname(first) == _build.BUILD_DIR
+    cmd = _build.nvcc_command("k", "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
