@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
 Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
-  2. build every CUDA source in dynaalign_torch/csrc (one nvcc each),
-     printing the ptxas register/shared-memory/spill lines;
-  3. every kernel against its plain PyTorch version on the card, on seeded
+  2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
+     started together), printing the ptxas register/shared-memory/spill
+     lines and the SASS instructions per DP cell of both NW kernels;
+  3. nw_gotoh against its plain PyTorch version on the card, on seeded
      fuzz (all BLOSUM tables and gap settings, short, ~566 aa, m != n and
      the largest padded width), exactly;
-  4. the main path at full size: similarity_nw on h3n2sample[:1000]
-     (500,500 pairs) through the kernel, bit-exact against the serial C++
-     oracle on the [:24, :24] and [-24:, -24:] blocks (the first and the
-     last chunk), and on evp_peparray[:160] in full;
-  5. timing: similarity_nw end to end (best of 3); every main-path chunk
-     through the kernel and the plain version, each held equal to the other
-     and to the main path's result; the kernel on one chunk beside its
-     bound; the serial oracle's rate;
-  6. padded widths past the ported kernel's range raise NotImplementedError.
+  4. nw_gotoh_xl against the plain version likewise (the 18 table x gap
+     batches at 1-80 aa, 1,121-2,000 aa, m != n, lengths on strip edges);
+  5. the main path at full size: similarity_nw on h3n2sample[:1000]
+     (500,500 pairs) through nw_gotoh, bit-exact against the serial C++
+     oracle on the [:24, :24] and [-24:, -24:] blocks, and on
+     evp_peparray[:160] in full;
+  6. timing of that path: end to end (best of 3); every chunk through the
+     kernel and the plain version, each held equal to the other and to the
+     main path's result; the kernel on one chunk beside its bound; the
+     serial oracle's rate;
+  7. the long path: similarity_nw on 96 joins of h3n2sample proteins
+     (624-5,094 aa, 4,656 pairs) through nw_gotoh_xl alone, against the
+     oracle on two 16x16 blocks and the plain version on every pair, timed
+     beside its bound and the oracle's rate;
+  8. similarity_nw_bucketed on a mixed set (12-mers, HA, 2-3 HA joined)
+     launching both NW kernels, equal to similarity_nw and the oracle;
+  9. nw_rescore_pairs past every TPU ceiling (13,000 x 13,000 and
+     12,300 x 17,000 aa) against the oracle;
+ 10. the shift probe: every kind against its plain version, ns per step
+     and the marginals of the shuffle and the shifted load.
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -40,11 +52,12 @@ import torch
 # behind the 67 TFLOP/s float32 figure) x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# int32 operations per DP cell in the kernel's inner loop, counted from
-# csrc/nw_gotoh.cu: Ix 3, Iy 3, diagonal 3, D>U>L decision 4, selects 6,
-# match 1.
+# int32 operations per DP cell in both NW kernels' inner loops, counted
+# from csrc/nw_gotoh.cu: Ix 3, Iy 3, diagonal 3, D>U>L decision 4, selects
+# 6, match 1.
 OPS_PER_CELL = 20
 GAPS = [(10, 4), (5, 1), (12, 2)]
+CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
 def _smi(query="name,power.limit") -> str:
@@ -54,19 +67,22 @@ def _smi(query="name,power.limit") -> str:
     ).stdout.strip()
 
 
-CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
-
-
-def _random_batch(dev, seed, n, a_range, b_range, pad=None):
-    """Seeded pair batch (a_idx, a_len, b_idx, b_len) on ``dev``."""
+def _random_batch(dev, seed, n, a_range, b_range, pad=None, pad_b=None):
+    """Seeded pair batch (a_idx, a_len, b_idx, b_len) on ``dev``: lengths
+    drawn from a (lo, hi) range or cycled from a list; ``pad`` pads both
+    sides unless ``pad_b`` is given."""
     from dynaalign_torch.encode import ALPHABET, encode
 
     rng = np.random.default_rng(seed)
     out = []
-    for lo, hi in (a_range, b_range):
-        seqs = ["".join(rng.choice(list(ALPHABET), size=k))
-                for k in rng.integers(lo, hi + 1, size=n)]
-        e = encode(seqs, pad_to=pad)
+    for lens, to in ((a_range, pad), (b_range, pad if pad_b is None
+                                      else pad_b)):
+        if isinstance(lens, list):
+            lens = np.resize(lens, n)
+        else:
+            lens = rng.integers(lens[0], lens[1] + 1, size=n)
+        seqs = ["".join(rng.choice(list(ALPHABET), size=k)) for k in lens]
+        e = encode(seqs, pad_to=to)
         out += [torch.from_numpy(e.indices).to(dev),
                 torch.from_numpy(e.lengths).to(dev)]
     return out
@@ -77,47 +93,48 @@ def _max_err(got, ref) -> int:
                int((got.length - ref.length).abs().max()))
 
 
-def kernel_vs_plain(dev, n_fuzz=2048, n_long=1024, n_xl=128) -> int:
-    """Phase 3: the kernel equals its plain version on every batch."""
+def _equal(got, ref) -> bool:
+    return (torch.equal(got.matches, ref.matches)
+            and torch.equal(got.length, ref.length))
+
+
+def _fuzz_cases(seed0, n_fuzz):
+    """The 18 BLOSUM table x gap setting batches at 1-80 aa."""
+    from dynaalign_torch import blosum
+
+    return [(f"{name} gaps {gaps} len 1-80", name, gaps,
+             (seed0 + 3 * t + g, n_fuzz, (1, 80), (1, 80)))
+            for t, name in enumerate(blosum.MATRIX_NAMES)
+            for g, gaps in enumerate(GAPS)]
+
+
+def kernel_vs_plain(dev, wrapper, cases) -> int:
+    """The kernel behind ``wrapper`` equals its plain version on every
+    batch; returns the largest absolute difference (0)."""
     from dynaalign_torch import blosum
     from dynaalign_torch.ops.nw import nw_similarity_batch
-    from dynaalign_torch.ops.nw_cuda import nw_similarity_batch_cuda
 
-    cases = []
-    for t, name in enumerate(blosum.MATRIX_NAMES):
-        for g, gaps in enumerate(GAPS):
-            cases.append((f"{name} gaps {gaps} len 1-80", name, gaps,
-                          (100 + 3 * t + g, n_fuzz, (1, 80), (1, 80), None)))
-    cases += [
-        ("len 520-566", "BLOSUM62", (10, 4),
-         (1, n_long, (520, 566), (520, 566), 566)),
-        ("m != n: 1-80 x 400-566", "BLOSUM62", (10, 4),
-         (2, n_long, (1, 80), (400, 566), None)),
-        ("padded m+1 = 1120", "BLOSUM62", (10, 4),
-         (3, n_xl, (1000, 1119), (1000, 1119), 1119)),
-    ]
     worst = 0
     for label, name, (go, ge), batch in cases:
         args = _random_batch(dev, *batch)
         sub = blosum.get_matrix(name, device=dev)
-        got = nw_similarity_batch_cuda(*args, sub, gap_open=go, gap_ext=ge)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        got = wrapper(*args, sub, gap_open=go, gap_ext=ge)
+        torch.cuda.synchronize()
         ref = nw_similarity_batch(*args, sub, gap_open=go, gap_ext=ge)
         err = _max_err(got, ref)
-        same = (torch.equal(got.matches, ref.matches)
-                and torch.equal(got.length, ref.length))
-        print(f"  kernel vs plain, {label}: B={args[0].shape[0]} "
-              f"M={args[0].shape[1]} N={args[2].shape[1]} "
+        same = _equal(got, ref)
+        print(f"  {wrapper.__name__} vs plain, {label}: B={args[0].shape[0]}"
+              f" M={args[0].shape[1]} N={args[2].shape[1]} "
               f"max_abs_err={err} {'equal' if same else 'DIFFERENT'}")
         if not same:
-            raise AssertionError(f"kernel != plain version on {label}")
+            raise AssertionError(f"{wrapper.__name__} != plain on {label}")
         worst = max(worst, err)
     return worst
 
 
-def check_main_path(sims, seqs, oracle_n=24):
-    """Phase 4 checks on one similarity_nw result."""
+def check_result(sims, seqs, blocks):
+    """A similarity matrix is float64, finite, symmetric, in [0, 1], and
+    equals the serial oracle on each index block in ``blocks``."""
     from dynaalign_torch import oracle
 
     n = len(seqs)
@@ -127,33 +144,38 @@ def check_main_path(sims, seqs, oracle_n=24):
         raise AssertionError("result not finite and symmetric")
     if not ((sims >= 0) & (sims <= 1)).all():
         raise AssertionError("result outside [0, 1]")
-    k = min(oracle_n, n)
-    for block in (slice(None, k), slice(n - k, None)):
-        if not np.array_equal(sims[block, block],
-                              oracle.nw_similarity(seqs[block])):
-            raise AssertionError(f"result != oracle on the {block} block")
+    for idx in blocks:
+        idx = np.asarray(idx)
+        if not np.array_equal(sims[np.ix_(idx, idx)],
+                              oracle.nw_similarity([seqs[i] for i in idx])):
+            raise AssertionError(f"result != oracle on block {idx.tolist()}")
 
 
-def inner_loop_mix(sass: str) -> tuple[int, dict[str, int]]:
-    """SASS instruction count and opcode mix of the innermost loop that
-    reads shared memory (the DP cell loop), from ``cuobjdump -sass``."""
+def inner_loop_mix(sass: str, kernel: str) -> tuple[int, dict[str, int]]:
+    """SASS instruction count and opcode mix of the innermost loop of
+    ``kernel`` that reads shared memory (the DP loop), from ``cuobjdump
+    -sass``."""
     import re
     from collections import Counter
 
+    body = [f for f in sass.split("Function : ")[1:]
+            if kernel in f.split("\n", 1)[0]]
+    if not body:
+        raise AssertionError(f"no function {kernel} in the SASS")
     ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-        r"(?:\s+(0x[0-9a-f]+))?", sass)]
+        r"(?:\s+(0x[0-9a-f]+))?", body[0])]
     best = None
     for a, op, tgt in ins:
         if op != "BRA" or not tgt or int(tgt, 16) >= a:
             continue
-        body = [o for x, o, _ in ins if int(tgt, 16) <= x <= a]
-        if any(o.startswith("LDS") for o in body) and (
-            best is None or len(body) < len(best)
+        loop = [o for x, o, _ in ins if int(tgt, 16) <= x <= a]
+        if any(o.startswith("LDS") for o in loop) and (
+            best is None or len(loop) < len(best)
         ):
-            best = body
+            best = loop
     if best is None:
-        raise AssertionError("no shared-memory loop found in the SASS")
+        raise AssertionError(f"no shared-memory loop in {kernel}'s SASS")
     return len(best), dict(Counter(o.split(".")[0] for o in best))
 
 
@@ -169,15 +191,61 @@ def _event_ms(fn, repeat=1):
     return start.elapsed_time(stop) / repeat, out
 
 
+def _bound(cells, nbytes):
+    """(bound ms, bound_by) of an NW launch: OPS_PER_CELL int32 operations
+    per cell at the int32 peak against its bytes at the HBM rate."""
+    ops_ms = OPS_PER_CELL * cells / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def _pair_batch(idx, ln, rows, cols):
+    return [idx[rows], ln[rows], idx[cols], ln[cols]]
+
+
+def long_set():
+    """96 sequences of 2-9 consecutive h3n2sample proteins joined, the
+    counts drawn by np.random.default_rng(0).integers(2, 10, size=96)."""
+    from dynaalign_torch.io.datasets import load_sequences
+
+    ha = [s for s in load_sequences("h3n2sample") if s]
+    out, pos = [], 0
+    for k in np.random.default_rng(0).integers(2, 10, size=96):
+        out.append("".join(ha[pos : pos + k]))
+        pos += k
+    return out
+
+
+def mixed_set():
+    """evp_peparray[:64] + h3n2sample[:64] + 64 joins of 2-3 full-length
+    HA proteins (1,132-1,698 aa) from h3n2sample[64:]."""
+    from dynaalign_torch.io.datasets import load_sequences
+
+    ha = load_sequences("h3n2sample")
+    full = [s for s in ha[64:] if len(s) >= 566]
+    joins, pos = [], 0
+    for k in np.random.default_rng(1).integers(2, 4, size=64):
+        joins.append("".join(full[pos : pos + k]))
+        pos += k
+    return load_sequences("evp_peparray", 64) + ha[:64] + joins
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from dynaalign_torch import api, blosum, oracle, similarity_nw
+    from dynaalign_torch import (
+        api, blosum, nw_rescore_pairs, oracle, similarity_nw,
+        similarity_nw_bucketed,
+    )
+    from dynaalign_torch.encode import encode
     from dynaalign_torch.io.datasets import load_sequences
-    from dynaalign_torch.ops import MAX_MP1, _build, nw_batch, nw_cuda
+    from dynaalign_torch.ops import _build, nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
+    from dynaalign_torch.tools import probe_misalign as probe
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _smi()
@@ -185,38 +253,64 @@ def main() -> int:
           f"{torch.version.cuda}")
     print(f"nvidia-smi name, power.limit: {smi}")
 
-    names = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
     t0 = time.perf_counter()
-    built = {name: _build.build(name) for name in names}
-    print(f"[2] built {names} in {time.perf_counter() - t0:.2f} s")
+    built = _build.build_all()
+    print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
+          "(one nvcc each, in parallel)")
     for name, b in built.items():
         for line in b.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", built["nw_gotoh"].path],
-                          capture_output=True, text=True, check=True).stdout
-    n_ins, mix = inner_loop_mix(sass)
-    cells_per_iter = mix.get("STG", 0) / 5  # five planes stored per cell
-    print(f"  nw_gotoh DP loop: {n_ins} SASS instructions for "
-          f"{cells_per_iter:g} cells = {n_ins / cells_per_iter:.1f} per cell; "
-          f"mix {sorted(mix.items(), key=lambda kv: -kv[1])}")
+    for name, per_iter in (("nw_gotoh", "STG"), ("nw_gotoh_xl", "LDS")):
+        sass = subprocess.run([cuobjdump, "-sass", built[name].path],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        n_ins, mix = inner_loop_mix(sass, f"{name}_kernel")
+        # nw_gotoh stores five planes per cell; nw_gotoh_xl reads the
+        # substitution table once per cell
+        cells = mix.get(per_iter, 0) / (5 if per_iter == "STG" else 1)
+        print(f"  {name} DP loop: {n_ins} SASS instructions for {cells:g} "
+              f"cells = {n_ins / cells:.1f} per cell; mix "
+              f"{sorted(mix.items(), key=lambda kv: -kv[1])}")
 
-    print("[3] kernel vs plain version on the card")
-    worst = kernel_vs_plain(dev)
+    print("[3] nw_gotoh vs plain version on the card")
+    worst = kernel_vs_plain(dev, nw_cuda.nw_similarity_batch_cuda, [
+        *_fuzz_cases(100, 2048),
+        ("len 520-566", "BLOSUM62", (10, 4), (1, 1024, (520, 566),
+                                              (520, 566), 566)),
+        ("m != n: 1-80 x 400-566", "BLOSUM62", (10, 4),
+         (2, 1024, (1, 80), (400, 566))),
+        ("padded m+1 = 1120", "BLOSUM62", (10, 4),
+         (3, 128, (1000, 1119), (1000, 1119), 1119)),
+    ])
 
-    print("[4] main path: similarity_nw on h3n2sample[:1000]")
+    print("[4] nw_gotoh_xl vs plain version on the card")
+    worst_xl = kernel_vs_plain(dev, nw_cuda.nw_similarity_batch_cuda_xl, [
+        *_fuzz_cases(200, 2048),
+        ("len 1121-2000", "BLOSUM62", (10, 4),
+         (4, 256, (1121, 2000), (1121, 2000))),
+        ("m != n: 40-200 x 3000-5000", "BLOSUM80", (12, 2),
+         (5, 64, (40, 200), (3000, 5000))),
+        ("a_len on and next to strip edges (256, 512, 768 rows)",
+         "BLOSUM45", (5, 1), (6, 256, [0, 1, 255, 256, 257, 511, 512, 513,
+                                       767, 768], (0, 1121), 768, 1121)),
+    ])
+
+    print("[5] main path: similarity_nw on h3n2sample[:1000]")
     h3n2 = load_sequences("h3n2sample", limit=1000)
-    nw_cuda.LAUNCHES = 0
+    n = len(h3n2)
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
     t0 = time.perf_counter()
     sims = similarity_nw(h3n2)
     first_s = time.perf_counter() - t0
     launches = nw_cuda.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the main path never launched the kernel")
-    check_main_path(sims, h3n2)
-    print(f"  n=1000: {launches} kernel launches, first call {first_s:.3f} s,"
-          " bit-exact vs the oracle on [:24, :24] and [-24:, -24:]")
+    if launches == 0 or nw_cuda.LAUNCHES_XL:
+        raise AssertionError("the main path did not run on nw_gotoh alone")
+    check_result(sims, h3n2, [range(24), range(n - 24, n)])
+    print(f"  n=1000: {launches} nw_gotoh launches, first call "
+          f"{first_s:.3f} s, bit-exact vs the oracle on [:24, :24] and "
+          "[-24:, -24:]")
     evp = load_sequences("evp_peparray", limit=160)
     nw_cuda.LAUNCHES = 0
     sims_e = similarity_nw(evp)
@@ -228,10 +322,9 @@ def main() -> int:
     print(f"  evp_peparray[:160]: {evp_launches} launch(es), equal to the "
           "oracle in full")
 
-    print("[5] timing")
+    print("[6] timing of the main path")
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     lens = np.array([len(s) for s in h3n2], dtype=np.float64)
-    n = len(h3n2)
     pairs = n * (n + 1) // 2
     cells = (lens.sum() ** 2 + (lens ** 2).sum()) / 2  # upper tri + diagonal
     walls = []
@@ -247,8 +340,6 @@ def main() -> int:
     # the main path's chunks, rebuilt as api.similarity_nw builds them; each
     # through the kernel and the plain version, held equal to each other and
     # to the main path's result for those pairs
-    from dynaalign_torch.encode import encode
-
     enc = encode(h3n2)
     idx = torch.from_numpy(enc.indices).to(dev)
     ln = torch.from_numpy(enc.lengths).to(dev)
@@ -258,16 +349,16 @@ def main() -> int:
     chunk_ms, plain_chunk_ms = [], []
     for s in range(0, pairs, api.DEFAULT_CHUNK):
         e = min(s + api.DEFAULT_CHUNK, pairs)
-        r, c = iu[:, s:e]
-        args = [idx[r], ln[r], idx[c], ln[c]]
+        args = _pair_batch(idx, ln, *iu[:, s:e])
         k_ms, got = _event_ms(
             lambda: nw_cuda.nw_similarity_batch_cuda(*args, sub))
         p_ms, ref = _event_ms(lambda: nw_similarity_batch(*args, sub))
         chunk_ms.append(k_ms)
         plain_chunk_ms.append(p_ms)
+        if s == 0:
+            first_ref = ref
         worst = max(worst, _max_err(got, ref))
-        if not (torch.equal(got.matches, ref.matches)
-                and torch.equal(got.length, ref.length)):
+        if not _equal(got, ref):
             raise AssertionError(f"kernel != plain on main-path pairs {s}:{e}")
         if not np.array_equal(sims[iu_np[0][s:e], iu_np[1][s:e]],
                               ref.similarity()):
@@ -285,28 +376,32 @@ def main() -> int:
         print(f"  similarity_nw n=1000 with chunk={c}: "
               f"{time.perf_counter() - t0:.4f} s")
 
-    r, c = iu[:, : api.DEFAULT_CHUNK]
-    chunk = [idx[r], ln[r], idx[c], ln[c]]
+    chunk = _pair_batch(idx, ln, *iu[:, : api.DEFAULT_CHUNK])
     bsz, m = chunk[0].shape
-    la, lb = chunk[1].double(), chunk[3].double()
-    chunk_cells = float((la * lb).sum())
-    ops = OPS_PER_CELL * chunk_cells
+    chunk_cells = float((chunk[1].double() * chunk[3].double()).sum())
     nbytes = 4 * (2 * bsz * m + 2 * bsz + 32 * 32 + 2 * bsz)
-    bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    bound_ms, bound_by = _bound(chunk_cells, nbytes)
     kernel_ms, _ = _event_ms(
         lambda: nw_cuda.nw_similarity_batch_cuda(*chunk, sub), repeat=3
     )
-    print(f"  kernel, one chunk (B={bsz}, M=N={m}, {chunk_cells:.4e} cells):"
-          f" {kernel_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
-          f"({ops:.4e} int32 ops at {INT32_OPS_PER_S:.4e}/s; {nbytes} bytes "
-          f"at {HBM_BYTES_PER_S:.3e} B/s) = {bound_ms / kernel_ms:.4f} of "
-          f"the bound; {chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
+    print(f"  nw_gotoh, one chunk (B={bsz}, M=N={m}, {chunk_cells:.4e} "
+          f"cells): {kernel_ms:.3f} ms; bound {bound_ms:.3f} ms by "
+          f"{bound_by} ({OPS_PER_CELL} int32 ops per cell at "
+          f"{INT32_OPS_PER_S:.4e}/s; {nbytes} bytes at {HBM_BYTES_PER_S:.3e}"
+          f" B/s) = {bound_ms / kernel_ms:.4f} of the bound; "
+          f"{chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
     plain_ms = plain_chunk_ms[0]
     print(f"  plain version (correctness twin, not a yardstick), same chunk:"
           f" {plain_ms:.3f} ms")
+    # the one-warp-per-pair kernel on the same chunk, for comparison only:
+    # the main path routes these widths to nw_gotoh
+    xl_chunk_ms, xl_got = _event_ms(
+        lambda: nw_cuda.nw_similarity_batch_cuda_xl(*chunk, sub), repeat=3)
+    if not _equal(xl_got, first_ref):
+        raise AssertionError("nw_gotoh_xl != plain on the first chunk")
+    print(f"  nw_gotoh_xl on the same chunk (comparison, not the main path):"
+          f" {xl_chunk_ms:.3f} ms = {bound_ms / xl_chunk_ms:.4f} of the "
+          f"bound, {kernel_ms / xl_chunk_ms:.2f}x nw_gotoh; equal to plain")
     print("  library_ms: none (no single PyTorch call computes NW)")
     t0 = time.perf_counter()
     oracle.nw_similarity(h3n2[:24])
@@ -316,22 +411,159 @@ def main() -> int:
           f" s = {oracle_rate:.2f} pairs/s; similarity_nw / oracle = "
           f"{pairs / best / oracle_rate:.2f}x")
 
-    print("[6] padded m+1 > 1120 (the _kernel_xl range, not yet ported)")
-    wide = _random_batch(dev, 4, 4, (5, 10), (5, 10), pad=MAX_MP1)
-    try:
-        nw_batch(*wide, sub)
-    except NotImplementedError as e:
-        print(f"  raises NotImplementedError: {e}")
-    else:
-        raise AssertionError("padded m+1 > 1120 did not raise")
+    print("[7] long path: similarity_nw on 96 joins of h3n2sample proteins")
+    long = long_set()
+    nl = len(long)
+    llens = np.array([len(s) for s in long], dtype=np.float64)
+    lpairs = nl * (nl + 1) // 2
+    lcells = (llens.sum() ** 2 + (llens ** 2).sum()) / 2
+    print(f"  {nl} sequences of {llens.min():.0f}-{llens.max():.0f} aa "
+          f"(mean {llens.mean():.2f}), {lpairs} pairs, {lcells:.4e} cells")
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    t0 = time.perf_counter()
+    lsims = similarity_nw(long)
+    lfirst_s = time.perf_counter() - t0
+    launches_xl = nw_cuda.LAUNCHES_XL
+    if launches_xl == 0 or nw_cuda.LAUNCHES:
+        raise AssertionError("the long path did not run on nw_gotoh_xl alone"
+                             f" ({nw_cuda.LAUNCHES}, {launches_xl})")
+    t0 = time.perf_counter()
+    check_result(lsims, long, [range(16)])
+    lor_s = time.perf_counter() - t0
+    check_result(lsims, long, [range(nl - 16, nl)])
+    lor_rate = 136 / lor_s
+    print(f"  {launches_xl} nw_gotoh_xl launch(es), 0 nw_gotoh; first call "
+          f"{lfirst_s:.3f} s; bit-exact vs the oracle on [:16, :16] and "
+          "[-16:, -16:]")
+    lwalls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        similarity_nw(long)
+        lwalls.append(time.perf_counter() - t0)
+    lbest = min(lwalls)
+    print(f"  similarity_nw long set wall s: {lwalls}; best {lbest:.4f} s = "
+          f"{lpairs / lbest:.1f} pairs/s, {lcells / lbest:.4e} cell "
+          "updates/s")
+    lenc = encode(long)
+    lidx = torch.from_numpy(lenc.indices).to(dev)
+    lln = torch.from_numpy(lenc.lengths).to(dev)
+    liu = torch.triu_indices(nl, nl, device=dev)
+    largs = _pair_batch(lidx, lln, *liu)
+    print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
+    xl_ms, _ = _event_ms(
+        lambda: nw_cuda.nw_similarity_batch_cuda_xl(*largs, sub), repeat=3)
+    xl_plain_ms, lref = _event_ms(lambda: nw_similarity_batch(*largs, sub))
+    lgot = nw_cuda.nw_similarity_batch_cuda_xl(*largs, sub)
+    worst_xl = max(worst_xl, _max_err(lgot, lref))
+    liu_np = np.triu_indices(nl)
+    if not _equal(lgot, lref) or not np.array_equal(
+        lsims[liu_np], lref.similarity()
+    ):
+        raise AssertionError("long set: kernel, plain and similarity_nw "
+                             "differ")
+    lb, lm = largs[0].shape
+    lbytes = 4 * (2 * lb * lm + 2 * lb + 32 * 32 + 2 * lb)
+    xl_bound_ms, xl_bound_by = _bound(lcells, lbytes)
+    print(f"  nw_gotoh_xl, all {lb} pairs in one launch (M=N={lm}): "
+          f"{xl_ms:.3f} ms; bound {xl_bound_ms:.3f} ms by {xl_bound_by} "
+          f"({lbytes} bytes) = {xl_bound_ms / xl_ms:.4f} of the bound; "
+          f"{lcells / xl_ms * 1e3:.4e} cell updates/s; kernel / best wall = "
+          f"{xl_ms / 1e3 / lbest:.4f}")
+    print(f"  plain version on the card, same pairs: {xl_plain_ms:.3f} ms; "
+          "kernel == plain == similarity_nw on every pair")
+    print(f"  serial C++ oracle, long set [:16, :16] (136 pairs): "
+          f"{lor_s:.4f} s = {lor_rate:.4f} pairs/s; similarity_nw / oracle "
+          f"= {lpairs / lbest / lor_rate:.2f}x (pairs/s; the block's pairs "
+          "are of the same set)")
+    print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
+
+    print("[8] similarity_nw_bucketed on a mixed set")
+    mixed = mixed_set()
+    nm = len(mixed)
+    mlens = [len(s) for s in mixed]
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    t0 = time.perf_counter()
+    msims = similarity_nw_bucketed(mixed)
+    m_s = time.perf_counter() - t0
+    mixed_launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    if min(mixed_launches) == 0:
+        raise AssertionError(f"bucketed launches {mixed_launches}: not both")
+    t0 = time.perf_counter()
+    m_ref = similarity_nw(mixed)
+    m_flat_s = time.perf_counter() - t0
+    if not np.array_equal(msims, m_ref):
+        raise AssertionError("similarity_nw_bucketed != similarity_nw")
+    check_result(msims, mixed, [
+        [*range(0, 5), *range(64, 69), *range(128, 134)],
+        [*range(59, 64), *range(123, 128), *range(186, 192)],
+    ])
+    print(f"  {nm} sequences of {min(mlens)}-{max(mlens)} aa: "
+          f"{mixed_launches[0]} nw_gotoh + {mixed_launches[1]} nw_gotoh_xl "
+          f"launches, {m_s:.3f} s (similarity_nw {m_flat_s:.3f} s); equal to"
+          " similarity_nw and to the oracle on two 16x16 blocks across the "
+          "buckets")
+
+    print("[9] nw_rescore_pairs past every TPU ceiling")
+    rng = np.random.default_rng(9)
+    for la, lb_ in ((13000, 13000), (12300, 17000)):
+        seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=k))
+                for k in [la, lb_] * 4]
+        pi, pj = np.arange(0, 8, 2), np.arange(1, 8, 2)
+        nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+        t0 = time.perf_counter()
+        got = nw_rescore_pairs(seqs, pi, pj)
+        r_s = time.perf_counter() - t0
+        ref = [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)]
+        if not np.array_equal(got, ref) or nw_cuda.LAUNCHES_XL == 0:
+            raise AssertionError(f"nw_rescore_pairs {la} x {lb_} != oracle")
+        print(f"  4 pairs of {la} x {lb_} aa (m+n = {la + lb_}): "
+              f"{nw_cuda.LAUNCHES_XL} nw_gotoh_xl launch(es), {r_s:.3f} s; "
+              f"equal to the oracle pair by pair: {got.tolist()}")
+
+    print("[10] shift probe (probe_shift)")
+    clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+    seed = probe.seed_plane(dev)
+    probe.LAUNCHES = 0
+    per_kind, probe_err = {}, 0
+    for k in probe.KINDS:
+        got = probe.probe_shift(seed, k, 64)
+        ref = probe.probe_plain(seed, k, 64)
+        probe_err = max(probe_err, int((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"probe_shift != plain ({k})")
+        per_kind[k] = probe.run(k)
+        print(f"  {k}: equal to the plain version after 64 steps; "
+              f"{per_kind[k]:.3f} ns/step marginal; shared-memory bound "
+              f"{probe.bound_ns_per_step(k, clock_hz):.3f} ns/step "
+              f"({probe.smem_bytes_per_step(k)} B per block per step at 128 "
+              f"B/clock, {clock_hz / 1e9:.3f} GHz)")
+    probe_launches = probe.LAUNCHES
+    for k in ("shfl", "mis"):
+        print(f"  {k} - base: {per_kind[k] - per_kind['base']:.3f} ns/step")
+    steps = 20000
+    probe_ms, _ = _event_ms(lambda: probe.probe_shift(seed, "shfl", steps),
+                            repeat=3)
+    probe_plain_ms, _ = _event_ms(
+        lambda: probe.probe_plain(seed, "shfl", steps))
+    xors = probe.W * probe.B * steps
+    pbytes = 2 * probe.MP1 * probe.B * 4
+    probe_bound_ms = max(xors / INT32_OPS_PER_S, pbytes / HBM_BYTES_PER_S)
+    probe_bound_ms *= 1e3
+    probe_bound_by = ("operations" if xors / INT32_OPS_PER_S
+                      >= pbytes / HBM_BYTES_PER_S else "bytes")
+    smem_ms = probe.bound_ns_per_step("shfl", clock_hz) * steps / 1e6
+    print(f"  shfl, one launch of {steps} steps: {probe_ms:.3f} ms; bound "
+          f"{probe_bound_ms:.4f} ms by {probe_bound_by} ({xors} xors at the "
+          f"int32 peak), {smem_ms:.3f} ms by shared memory on its 8 SMs; "
+          f"plain version on the card {probe_plain_ms:.3f} ms")
 
     print(f"nvidia-smi name, power.limit: {_smi()}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "nw_gotoh",
         "route": "cuda",
         "source": "dynaalign_torch/csrc/nw_gotoh.cu",
-        "replaces": "dynaalign_tpu/ops/nw_pallas.py::_kernel",
-        "replaces_line": "dynaalign_tpu/ops/nw_pallas.py:302",
+        "replaces": "dynaalign_tpu/ops/nw_pallas.py:302",
         "launches": launches,
         "equal_to_plain": True,
         "max_abs_err": worst,
@@ -340,6 +572,33 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "nw_gotoh_xl",
+        "route": "cuda",
+        "source": "dynaalign_torch/csrc/nw_gotoh_xl.cu",
+        "replaces": "dynaalign_tpu/ops/nw_pallas.py:1093",
+        "launches": launches_xl,
+        "equal_to_plain": True,
+        "max_abs_err": worst_xl,
+        "ms": xl_ms,
+        "plain_ms": xl_plain_ms,
+        "bound_ms": xl_bound_ms,
+        "bound_by": xl_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "probe_shift",
+        "route": "cuda",
+        "source": "dynaalign_torch/csrc/probe_shift.cu",
+        "replaces": "tools/probe_misalign.py:41",
+        "launches": probe_launches,
+        "equal_to_plain": True,
+        "max_abs_err": probe_err,
+        "ms": probe_ms,
+        "plain_ms": probe_plain_ms,
+        "bound_ms": probe_bound_ms,
+        "bound_by": probe_bound_by,
+        "library_ms": None,
+        "ns_per_step": per_kind,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -20,11 +20,18 @@ import torch
 
 from . import blosum
 from .encode import bucket_by_length, encode
-from .ops import nw_batch
+from .ops import nw_batch, pair_bytes
 
-# pairs per kernel launch: bounds the kernel's row scratch
-# (6 * (N+1) * 4 bytes per pair, 1.8 GB at N = 566)
+# most pairs per kernel launch
 DEFAULT_CHUNK = 1 << 17
+# most device bytes per launch: gathered inputs plus the kernel's scratch
+# (ops.pair_bytes).  131,072 pairs of h3n2 HA (M = N = 566) take 2.4 GB;
+# at M = N = 12,288 it allows 24,963 pairs, where DEFAULT_CHUNK would take
+# 45 GB.
+LAUNCH_BYTES = 8 << 30
+# the JAX package's default bucket edges (its api.PALLAS_BUCKET_EDGES),
+# copied so that both packages bucket, and refuse, the same sets
+BUCKET_EDGES = (15, 31, 63, 127, 255, 383, 511, 639, 767, 1023, 1535, 2047)
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -46,7 +53,10 @@ def _ratio(matches: np.ndarray, length: np.ndarray) -> np.ndarray:
 def _pairs_nw(idx_a, len_a, idx_b, len_b, rows, cols, sub, gap_open,
               gap_ext, chunk):
     """(matches, length) of pairs (idx_a[rows[k]], idx_b[cols[k]]), all on
-    the device, streamed in chunks and fetched once."""
+    the device, streamed in launches of at most ``chunk`` pairs and
+    LAUNCH_BYTES bytes, and fetched once."""
+    per_pair = pair_bytes(idx_a.shape[1], idx_b.shape[1])
+    chunk = max(1, min(chunk, LAUNCH_BYTES // per_pair))
     mt, ln = [], []
     for s in range(0, rows.numel(), chunk):
         r, c = rows[s : s + chunk], cols[s : s + chunk]
@@ -102,7 +112,7 @@ def similarity_nw_bucketed(
     gap_open: int = 10,
     gap_ext: int = 4,
     *,
-    bucket_edges: Sequence[int] = (16, 32, 64, 128, 256, 512, 1024, 2048),
+    bucket_edges: Sequence[int] = BUCKET_EDGES,
     device=None,
     chunk: int | None = None,
 ) -> np.ndarray:

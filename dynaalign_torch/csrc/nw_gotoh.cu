@@ -164,9 +164,4 @@ extern "C" int nw_gotoh_launch(const void* a_idx, const void* a_len,
   }
   return (int)cudaGetLastError();
 }
-
-// Scratch ints the launch needs for B pairs of b-width N.
-extern "C" long long nw_gotoh_scratch_ints(int B, int N) {
-  return (long long)NW_PLANES * (N + 1) * B;
-}
 #endif

@@ -1,44 +1,52 @@
-"""Batched NW dispatch: the range check of the ported kernel, then the
-wrapper, which sends CUDA tensors to the kernel and CPU tensors to the
-plain PyTorch version."""
+"""Batched NW dispatch: the width picks the kernel, then its wrapper sends
+CUDA tensors to the kernel and CPU tensors to the plain PyTorch version."""
 
 from __future__ import annotations
 
 import torch
 
 from .nw import NEG_SENTINEL, NWResult, nw_similarity_batch  # noqa: F401
-from .nw_cuda import nw_similarity_batch_cuda
+from .nw_cuda import (
+    SCRATCH_PLANES,
+    nw_similarity_batch_cuda,
+    nw_similarity_batch_cuda_xl,
+)
 
-# Largest padded m+1 the CUDA route serves in this slice: the range of the
-# TPU kernel it ports (PALLAS_MAX_MP1 in the JAX package's
-# ops/nw_pallas.py).
-# Longer pairs are the range of nw_pallas.py::_kernel_xl, not yet ported.
+# Largest padded max(m, n)+1 that goes to nw_gotoh (one thread per pair):
+# the range of the TPU kernel it ports, the JAX package's PALLAS_MAX_MP1
+# (ops/nw_pallas.py).  Wider batches go to nw_gotoh_xl (one warp per pair),
+# the port of _kernel_xl, which has no upper limit.
 MAX_MP1 = 1120
 
-
 def pick_nw_backend(device, m: int, n: int) -> str:
-    """``"torch"`` (the plain version) on the CPU, else ``"cuda"`` (the
-    kernel), as ``nw_similarity_batch_cuda`` routes a batch of padded widths
-    (m, n); raises where the kernel's range ends.  The wrapper itself raises
-    on devices other than CPU and CUDA."""
+    """``"torch"`` (the plain version) on the CPU; on a card ``"cuda"``
+    (``nw_gotoh``) for padded widths with max(m, n)+1 <= MAX_MP1, else
+    ``"cuda_xl"`` (``nw_gotoh_xl``), at any width.  The wrappers raise on
+    devices other than CPU and CUDA."""
     if torch.device(device).type == "cpu":
         return "torch"
-    if max(m, n) + 1 > MAX_MP1:
-        raise NotImplementedError(
-            f"padded length {max(m, n)} + 1 > {MAX_MP1}: multi-kilobase "
-            "pairs are the range of the TPU kernel _kernel_xl, not yet "
-            "ported (ROADMAP.md, queue 2 item 2)"
-        )
-    return "cuda"
+    return "cuda" if max(m, n) + 1 <= MAX_MP1 else "cuda_xl"
+
+
+def pair_bytes(m: int, n: int) -> int:
+    """Device bytes one pair of padded widths (m, n) takes in a launch: its
+    gathered int32 inputs, lengths and outputs, plus the scratch of the
+    kernel that serves it."""
+    kernel = {"cuda": "nw_gotoh", "cuda_xl": "nw_gotoh_xl"}[
+        pick_nw_backend("cuda", m, n)]
+    return 4 * (m + n + 4) + 4 * SCRATCH_PLANES[kernel] * (n + 1)
 
 
 def nw_batch(
     a_idx, a_len, b_idx, b_len, sub, *, gap_open: int = 10, gap_ext: int = 4
 ) -> NWResult:
     """(matches, length) for [B, L] pair batches on their own device."""
-    pick_nw_backend(a_idx.device, a_idx.shape[1], b_idx.shape[1])
-    return nw_similarity_batch_cuda(a_idx, a_len, b_idx, b_len, sub,
-                                    gap_open=gap_open, gap_ext=gap_ext)
+    backend = pick_nw_backend(a_idx.device, a_idx.shape[1], b_idx.shape[1])
+    # on the CPU ("torch") either wrapper runs the plain version
+    wrapper = (nw_similarity_batch_cuda_xl if backend == "cuda_xl"
+               else nw_similarity_batch_cuda)
+    return wrapper(a_idx, a_len, b_idx, b_len, sub,
+                   gap_open=gap_open, gap_ext=gap_ext)
 
 
 def nw_batch_tiled(

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root, named by the hash of its source
 and flags, so an edited source is rebuilt and an unchanged one is reused.
-The libraries are loaded with ``ctypes``.  A failed build raises: there is
-no fallback.
+:func:`build_all` starts one ``nvcc`` per source that needs it, all at
+once.  The libraries are loaded with ``ctypes``.  A failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ def nvcc_path() -> str:
     return found
 
 
+def sources() -> list[str]:
+    """The names of every ``csrc/*.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
 def target(name: str) -> str:
     """The library path for ``csrc/<name>.cu`` at its current content."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
@@ -61,19 +67,38 @@ def nvcc_command(name: str, out: str) -> list[str]:
             os.path.join(CSRC, f"{name}.cu")]
 
 
+def build_all(names: list[str] | None = None) -> dict[str, Built]:
+    """Build each of ``names`` (default: every source) whose library is not
+    there yet, one ``nvcc`` process each, all started together; wait for
+    all of them, then raise if any failed."""
+    names = sources() if names is None else names
+    done, running = {}, {}
+    for name in names:
+        out = target(name)
+        if os.path.exists(out):
+            done[name] = Built(out, "")
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        running[name] = (out, tmp, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in running.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        done[name] = Built(out, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: done[name] for name in names}
+
+
 def build(name: str) -> Built:
     """Build ``csrc/<name>.cu`` unless its library is already there."""
-    out = target(name)
-    if os.path.exists(out):
-        return Built(out, "")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(name, tmp), stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    return Built(out, proc.stdout)
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

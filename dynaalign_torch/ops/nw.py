@@ -4,9 +4,10 @@ Behavioural spec: reference src/pairwiseSeqAlign.cpp:209-313
 (``calculate_similarity``).  The score is NOT the alignment score — it is
 percent identity (matches / alignment_length) along the greedy traceback.
 
-This module is the plain twin of the CUDA kernel in ``csrc/nw_gotoh.cu``:
-the CPU tests hold it against the JAX package and the C++ oracle, and
-``chip_smoke.py`` holds the kernel against it on the card.  It is the
+This module is the plain twin of both CUDA kernels, ``csrc/nw_gotoh.cu``
+and ``csrc/nw_gotoh_xl.cu``, and serves any length: the CPU tests hold it
+against the JAX package and the C++ oracle, and ``chip_smoke.py`` holds
+each kernel against it on the card.  It is the
 anti-diagonal scan of the JAX package's ``ops/nw.py`` written as a Python loop
 over ``d = i + j`` on ``[B, M+1]`` int32 tensors (lane i <-> DP row i):
 

@@ -162,6 +162,30 @@ def test_bucket_by_length_equals_jax():
         bucket_by_length(["A" * 40], bucket_edges=(16, 32))
 
 
+def test_bucketed_default_edges_equal_jax():
+    """Both packages bucket with (15, 31, ..., 2047): both refuse a
+    2,048-aa sequence with the same error, and agree on a mixed set."""
+    from dynaalign_tpu.api import PALLAS_BUCKET_EDGES
+
+    from dynaalign_torch import api
+
+    assert api.BUCKET_EDGES == PALLAS_BUCKET_EDGES
+    too_long = ["ARND", "A" * 2048]
+    with pytest.raises(ValueError) as ours:
+        dt.similarity_nw_bucketed(too_long, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        dj.similarity_nw_bucketed(too_long)
+    assert str(ours.value) == str(theirs.value)
+    assert "2047" in str(ours.value)
+    rng = np.random.default_rng(9)
+    seqs = ["".join(rng.choice(list(ALPHABET), size=k))
+            for k in [3, 15, 16, 31, 7, 90, 127, 30]]
+    got = dt.similarity_nw_bucketed(seqs, device="cpu")
+    np.testing.assert_array_equal(got, dj.similarity_nw_bucketed(seqs,
+                                                                 batch=8))
+    np.testing.assert_array_equal(got, joracle.nw_similarity(seqs))
+
+
 @pytest.mark.parametrize("name", ["evp_peparray", "h3n2sample"])
 def test_load_sequences_equals_jax(name):
     assert datasets.load_sequences(name, 50) == jdatasets.load_sequences(
@@ -197,9 +221,16 @@ def test_default_device_without_card_raises(fn, monkeypatch):
         fn(["ARND", "ARNE"], device="cuda")
 
 
+def test_nw_rescore_pairs_default_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.nw_rescore_pairs(["ARND", "ARNE"], [0], [1])
+
+
 def test_import_does_not_load_jax():
     code = (
-        "import dynaalign_torch, sys; "
+        "import dynaalign_torch, dynaalign_torch.models, "
+        "dynaalign_torch.tools.probe_misalign, sys; "
         "assert not any(m == 'jax' or m.startswith('jax.') "
         "for m in sys.modules)"
     )

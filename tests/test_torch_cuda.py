@@ -1,6 +1,7 @@
-"""The CUDA NW kernel on the card, against its plain version and the C++
-oracle.  Without a card every test skips.  On a machine with one (and no
-JAX, whose import in conftest.py would fail):
+"""The CUDA kernels on the card (nw_gotoh, nw_gotoh_xl, probe_shift),
+against their plain versions and the C++ oracle.  Without a card every
+test skips.  On a machine with one (and no JAX, whose import in
+conftest.py would fail):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
@@ -11,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dynaalign_torch import blosum, oracle, similarity_nw  # noqa: E402
+from dynaalign_torch import nw_rescore_pairs  # noqa: E402
 from dynaalign_torch import similarity_nw_bucketed  # noqa: E402
 from dynaalign_torch.encode import ALPHABET, encode  # noqa: E402
 from dynaalign_torch.io.datasets import load_sequences  # noqa: E402
@@ -40,9 +42,9 @@ def _batch(dev, seed, n, alo, ahi, blo, bhi, pad_a=None, pad_b=None):
             for x in (ea.indices, ea.lengths, eb.indices, eb.lengths)]
 
 
-def _assert_kernel_equals_plain(args, sub, go=10, ge=4):
-    got = nw_cuda.nw_similarity_batch_cuda(*args, sub, gap_open=go,
-                                           gap_ext=ge)
+def _assert_kernel_equals_plain(args, sub, go=10, ge=4,
+                                wrapper=nw_cuda.nw_similarity_batch_cuda):
+    got = wrapper(*args, sub, gap_open=go, gap_ext=ge)
     ref = nw_similarity_batch(*args, sub, gap_open=go, gap_ext=ge)
     torch.cuda.synchronize()
     assert torch.equal(got.matches, ref.matches)
@@ -86,12 +88,73 @@ def test_bucketed_equals_oracle(cuda):
                                   oracle.nw_similarity(seqs))
 
 
-def test_xl_range_not_implemented(cuda):
+def test_xl_range_runs_nw_gotoh_xl(cuda):
+    """Padded m+1 = MAX_MP1 + 1 goes to nw_gotoh_xl and equals the plain
+    version; a 1,120-aa sequence runs through similarity_nw."""
     args = _batch(cuda, 3, 2, 5, 10, 5, 10, pad_a=MAX_MP1, pad_b=MAX_MP1)
-    with pytest.raises(NotImplementedError, match="_kernel_xl"):
-        nw_batch(*args, blosum.get_matrix(device=cuda))
-    with pytest.raises(NotImplementedError, match="_kernel_xl"):
-        similarity_nw(["A" * MAX_MP1, "ARND"])
+    sub = blosum.get_matrix(device=cuda)
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    got = nw_batch(*args, sub)
+    ref = nw_similarity_batch(*args, sub)
+    assert (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL) == (0, 1)
+    assert torch.equal(got.matches, ref.matches)
+    assert torch.equal(got.length, ref.length)
+    seqs = ["A" * MAX_MP1, "ARND"]
+    np.testing.assert_array_equal(similarity_nw(seqs),
+                                  oracle.nw_similarity(seqs))
+
+
+@pytest.mark.parametrize("gaps", [(10, 4), (5, 1), (12, 2)])
+@pytest.mark.parametrize("matrix", blosum.MATRIX_NAMES)
+def test_xl_kernel_equals_plain_fuzz(cuda, matrix, gaps):
+    args = _batch(cuda, 6, 1000, 1, 80, 1, 80)
+    _assert_kernel_equals_plain(args, blosum.get_matrix(matrix, device=cuda),
+                                *gaps,
+                                wrapper=nw_cuda.nw_similarity_batch_cuda_xl)
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 1121, 2000, 1121, 2000),
+    (64, 40, 200, 3000, 5000),  # m != n
+    (64, 255, 257, 511, 513),  # a_len next to strip edges
+    (2, 13000, 13000, 13000, 13000),  # past every TPU ceiling
+])
+def test_xl_kernel_equals_plain_shapes(cuda, shape):
+    n, alo, ahi, blo, bhi = shape
+    args = _batch(cuda, 7, n, alo, ahi, blo, bhi)
+    _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda),
+                                wrapper=nw_cuda.nw_similarity_batch_cuda_xl)
+
+
+def test_bucketed_mixed_set_launches_both_kernels(cuda):
+    ha = load_sequences("h3n2sample", 18)
+    seqs = (load_sequences("evp_peparray", 20) + ha[:10]
+            + [ha[10 + 2 * k] + ha[11 + 2 * k] for k in range(4)])
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    got = similarity_nw_bucketed(seqs)
+    assert nw_cuda.LAUNCHES > 0 and nw_cuda.LAUNCHES_XL > 0
+    np.testing.assert_array_equal(got, similarity_nw(seqs))
+    np.testing.assert_array_equal(got, oracle.nw_similarity(seqs))
+
+
+def test_nw_rescore_pairs_past_tpu_ceilings(cuda):
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list(ALPHABET[:20]), size=k))
+            for k in (13000, 13000, 12300, 17000)]
+    pi, pj = np.array([0, 2, 1]), np.array([1, 3, 1])
+    got = nw_rescore_pairs(seqs, pi, pj)
+    np.testing.assert_array_equal(
+        got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
+
+
+@pytest.mark.parametrize("kind", ["base", "shfl", "mis"])
+def test_probe_kernel_equals_plain(cuda, kind):
+    from dynaalign_torch.tools import probe_misalign as probe
+
+    seed = probe.seed_plane(cuda, 3)
+    got = probe.probe_shift(seed, kind, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), probe.probe_plain(seed.cpu(), kind, 64))
 
 
 def test_wrapper_rejects_int64_on_card(cuda):

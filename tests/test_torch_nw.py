@@ -208,13 +208,20 @@ def test_kernel_source_equals_oracle_on_h3n2(host_kernel):
 
 
 def test_dispatch_routes_by_device():
+    """CPU -> the plain version; on a card nw_gotoh up to padded
+    max(m, n)+1 = MAX_MP1, nw_gotoh_xl past it, at any width (past the TPU
+    kernel's 12,288 and its 32,767 packing budget too), never raising."""
     assert pick_nw_backend("cpu", 5000, 5000) == "torch"
+    assert pick_nw_backend("cpu", 20_000, 30) == "torch"
     assert pick_nw_backend("cuda", 566, 566) == "cuda"
     assert pick_nw_backend(torch.device("cuda", 0), MAX_MP1 - 1, 15) == "cuda"
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        pick_nw_backend("cuda", MAX_MP1, MAX_MP1)
-    with pytest.raises(NotImplementedError, match="_kernel_xl"):
-        pick_nw_backend("cuda", 15, MAX_MP1)
+    assert pick_nw_backend("cuda", MAX_MP1 - 1, MAX_MP1 - 1) == "cuda"
+    assert pick_nw_backend("cuda", MAX_MP1, MAX_MP1) == "cuda_xl"
+    assert pick_nw_backend("cuda", 15, MAX_MP1) == "cuda_xl"
+    assert pick_nw_backend("cuda", MAX_MP1, 15) == "cuda_xl"
+    for width in (12_287, 12_288, 16_407, 40_000):
+        assert pick_nw_backend("cuda", width, width) == "cuda_xl"
+    assert pick_nw_backend("cuda", 12_300, 17_000) == "cuda_xl"
 
 
 def test_nw_batch_and_tiled_on_cpu_equal_plain():
@@ -289,8 +296,17 @@ def test_launch_pointers_are_void_p():
 
 
 def test_build_targets_hopper_and_hashes_source(tmp_path, monkeypatch):
-    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    names = _build.sources()
+    assert names == ["nw_gotoh", "nw_gotoh_xl", "probe_shift"]
+    targets = [_build.target(name) for name in names]
+    assert len(set(targets)) == len(names)  # each source its own library
+    for name, tgt in zip(names, targets):
+        assert os.path.basename(tgt).startswith(f"{name}-")
+        cmd = _build.nvcc_command(name, "out.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[-1] == os.path.join(_build.CSRC, f"{name}.cu")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     src = tmp_path / "k.cu"
     src.write_text("// v1\n")
     first = _build.target("k")
@@ -301,6 +317,47 @@ def test_build_targets_hopper_and_hashes_source(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd
     for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
         assert flag in cmd
+
+
+_FAKE_NVCC = """#!/bin/sh
+# writes its -o file after a pause; fails on a source named bad.cu
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+sleep 1
+case "$a" in *bad.cu) echo "bad.cu(1): error"; exit 1;; esac
+echo "ptxas info: built $a"
+echo lib > "$out"
+"""
+
+
+def test_build_all_runs_nvcc_in_parallel_and_raises(tmp_path, monkeypatch):
+    import time
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc, build_dir = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a", "b", "c"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    assert time.perf_counter() - t0 < 2.5  # three 1 s builds, together
+    assert sorted(built) == ["a", "b", "c"]
+    for name, b in built.items():
+        assert b.path == _build.target(name) and os.path.exists(b.path)
+        assert f"{name}.cu" in b.log
+    assert all(b.log == "" for b in _build.build_all().values())  # reused
+    (csrc / "bad.cu").write_text("// bad\n")
+    (csrc / "a.cu").write_text("// a, edited\n")
+    with pytest.raises(RuntimeError, match="nvcc failed on bad.cu"):
+        _build.build_all()
+    assert os.path.exists(_build.target("a"))  # the others still finished
+    assert not any(f.endswith(".tmp") for f in os.listdir(build_dir)
+                   if "a-" in f)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
