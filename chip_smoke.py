@@ -7,20 +7,25 @@ Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
      started together), printing the ptxas register/shared-memory/spill
-     lines and the SASS instructions per DP cell of both NW kernels;
-  3. nw_gotoh against its plain PyTorch version on the card, on seeded
-     fuzz (all BLOSUM tables and gap settings, short, ~566 aa, m != n and
-     the largest padded width), exactly;
+     lines and, for the step loop of both NW kernels, the SASS instructions
+     per DP cell and whether the DPX opcodes are in its mix;
+  3. nw_gotoh against its plain PyTorch version on the card, exactly, on
+     seeded fuzz of every instantiation (all BLOSUM tables and gap
+     settings, lengths at each strip capacity, 1-4 columns, tie-heavy
+     low-complexity batches, m != n, ~566 aa, the largest padded width, and
+     a table that is not symmetric);
   4. nw_gotoh_xl against the plain version likewise (the 18 table x gap
-     batches at 1-80 aa, 1,121-2,000 aa, m != n, lengths on strip edges);
+     batches at 1-80 aa, 1,121-2,000 aa, m != n, lengths on strip edges,
+     and a batch of M + N >= 65,536 through its two-word instantiation);
   5. the main path at full size: similarity_nw on h3n2sample[:1000]
      (500,500 pairs) through nw_gotoh, bit-exact against the serial C++
-     oracle on the [:24, :24] and [-24:, -24:] blocks, and on
-     evp_peparray[:160] in full;
-  6. timing of that path: end to end (best of 3); every chunk through the
+     oracle on the [:24, :24] and [-24:, -24:] blocks; on
+     evp_peparray[:160] in full; and timed on all 641 evp_peparray 12-mers;
+  6. timing of that path: end to end (best of 3) and stage by stage (the
+     entry point's own steps, timed in place); every chunk through the
      kernel and the plain version, each held equal to the other and to the
-     main path's result; the kernel on one chunk beside its bound; the
-     serial oracle's rate;
+     main path's result; the kernel on one chunk beside its bound, and
+     nw_gotoh_xl on the same chunk; the serial oracle's rate;
   7. the long path: similarity_nw on 96 joins of h3n2sample proteins
      (624-5,094 aa, 4,656 pairs) through nw_gotoh_xl alone, against the
      oracle on two 16x16 blocks and the plain version on every pair, timed
@@ -28,7 +33,8 @@ Phases (any failure raises; the exit code is then non-zero):
   8. similarity_nw_bucketed on a mixed set (12-mers, HA, 2-3 HA joined)
      launching both NW kernels, equal to similarity_nw and the oracle;
   9. nw_rescore_pairs past every TPU ceiling (13,000 x 13,000 and
-     12,300 x 17,000 aa) against the oracle;
+     12,300 x 17,000 aa, and 300 x 40,000 aa through nw_gotoh_xl's two-word
+     instantiation) against the oracle;
  10. the shift probe: every kind against its plain version, ns per step
      and the marginals of the shuffle and the shifted load.
 
@@ -47,15 +53,27 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).  The int32
-# rate is not tabulated: 64 INT32 lanes per SM (half of the 128 FP32 lanes
-# behind the 67 TFLOP/s float32 figure) x 132 SMs x 1.98 GHz.
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).  Integer
+# rates are not tabulated.  An SM issues one warp-instruction a clock from
+# each of its four schedulers, 128 thread-instructions a clock, and has 64
+# INT32 ALU lanes (half of the 128 FP32 lanes behind the 67 TFLOP/s float32
+# figure); integer adds, multiply-adds and dp4a can also go down the FMA
+# pipe, so only what the ALU alone takes is held to the 64 lanes.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# int32 operations per DP cell in both NW kernels' inner loops, counted
-# from csrc/nw_gotoh.cu: Ix 3, Iy 3, diagonal 3, D>U>L decision 4, selects
-# 6, match 1.
-OPS_PER_CELL = 20
+ALU_OPS_PER_S = 64 * 132 * 1.98e9
+SCHED_OPS_PER_S = 128 * 132 * 1.98e9
+# Integer operations per DP cell that both NW kernels' bound counts, read
+# from csrc/nw_cell.cuh, where they are derived: NW_OPS_PER_CELL (with
+# Hopper's fused add-max, max-with-predicate and dp4a: Ix 2, Iy 2, diagonal
+# 1, the two maxima 2, the path word 5) at the issue rate, and
+# NW_ALU_OPS_PER_CELL of them (add-max, maxima, compare, selects) at the
+# ALU rate; the bound is the larger time.  The first versions of the
+# kernels were held to 20 at the ALU rate (Ix 3, Iy 3, diagonal 3, D>U>L
+# decision 4, selects 6, match 1); shares of that older bound are printed
+# beside the new ones.
+OPS_PER_CELL = ALU_OPS_PER_CELL = None  # read when the script starts
+OLD_OPS_PER_CELL = 20
+DPX_OPCODES = ("VIADDMNMX", "VIMNMX", "IDP")
 GAPS = [(10, 4), (5, 1), (12, 2)]
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
@@ -67,21 +85,37 @@ def _smi(query="name,power.limit") -> str:
     ).stdout.strip()
 
 
-def _random_batch(dev, seed, n, a_range, b_range, pad=None, pad_b=None):
+def _ops_per_cell() -> tuple[int, int]:
+    """(NW_OPS_PER_CELL, NW_ALU_OPS_PER_CELL) of csrc/nw_cell.cuh."""
+    import re
+
+    from dynaalign_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "nw_cell.cuh")) as f:
+        text = f.read()
+    return tuple(int(re.search(rf"#define {name} (\d+)", text)[1])
+                 for name in ("NW_OPS_PER_CELL", "NW_ALU_OPS_PER_CELL"))
+
+
+def _random_batch(dev, seed, n, a_range, b_range, pad=None, pad_b=None,
+                  alphabets=None):
     """Seeded pair batch (a_idx, a_len, b_idx, b_len) on ``dev``: lengths
     drawn from a (lo, hi) range or cycled from a list; ``pad`` pads both
-    sides unless ``pad_b`` is given."""
+    sides unless ``pad_b`` is given; ``alphabets`` = (a's, b's) letters."""
     from dynaalign_torch.encode import ALPHABET, encode
+
+    alphabets = alphabets or (ALPHABET, ALPHABET)
 
     rng = np.random.default_rng(seed)
     out = []
-    for lens, to in ((a_range, pad), (b_range, pad if pad_b is None
-                                      else pad_b)):
+    for lens, to, letters in ((a_range, pad, alphabets[0]),
+                              (b_range, pad if pad_b is None else pad_b,
+                               alphabets[1])):
         if isinstance(lens, list):
             lens = np.resize(lens, n)
         else:
             lens = rng.integers(lens[0], lens[1] + 1, size=n)
-        seqs = ["".join(rng.choice(list(ALPHABET), size=k)) for k in lens]
+        seqs = ["".join(rng.choice(list(letters), size=k)) for k in lens]
         e = encode(seqs, pad_to=to)
         out += [torch.from_numpy(e.indices).to(dev),
                 torch.from_numpy(e.lengths).to(dev)]
@@ -110,26 +144,79 @@ def _fuzz_cases(seed0, n_fuzz):
 
 def kernel_vs_plain(dev, wrapper, cases) -> int:
     """The kernel behind ``wrapper`` equals its plain version on every
-    batch; returns the largest absolute difference (0)."""
+    batch; returns the largest absolute difference (0).  A case's batch is
+    _random_batch's arguments, the last one optionally a dict of its keyword
+    arguments; a fifth entry names the nw_gotoh instantiation that must
+    have run."""
     from dynaalign_torch import blosum
+    from dynaalign_torch.ops import nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
 
     worst = 0
-    for label, name, (go, ge), batch in cases:
-        args = _random_batch(dev, *batch)
+    for label, name, (go, ge), batch, *inst in cases:
+        kw = batch[-1] if isinstance(batch[-1], dict) else {}
+        args = _random_batch(dev, *batch[: len(batch) - bool(kw)], **kw)
         sub = blosum.get_matrix(name, device=dev)
         got = wrapper(*args, sub, gap_open=go, gap_ext=ge)
         torch.cuda.synchronize()
+        ran = ""
+        if inst:
+            ran = f" instance {nw_cuda.LAST_INSTANCE}"
+            if nw_cuda.LAST_INSTANCE != inst[0]:
+                raise AssertionError(f"{label}: ran{ran}, not {inst[0]}")
         ref = nw_similarity_batch(*args, sub, gap_open=go, gap_ext=ge)
         err = _max_err(got, ref)
         same = _equal(got, ref)
-        print(f"  {wrapper.__name__} vs plain, {label}: B={args[0].shape[0]}"
-              f" M={args[0].shape[1]} N={args[2].shape[1]} "
-              f"max_abs_err={err} {'equal' if same else 'DIFFERENT'}")
+        print(f"  {wrapper.__name__}{ran} vs plain, {label}: "
+              f"B={args[0].shape[0]} M={args[0].shape[1]} "
+              f"N={args[2].shape[1]} max_abs_err={err} "
+              f"{'equal' if same else 'DIFFERENT'}")
         if not same:
             raise AssertionError(f"{wrapper.__name__} != plain on {label}")
         worst = max(worst, err)
     return worst
+
+
+def instance_cases(instances):
+    """Fuzz of every nw_gotoh instantiation (G lanes x R rows): the six
+    tables x three gap settings on the first, and on each one lengths at
+    its strip's capacity and next to it, 1-4 columns, and a tie-heavy
+    low-complexity batch (BLOSUM45, gaps (5, 1))."""
+    from dynaalign_torch import blosum
+
+    cases = []
+    for t, name in enumerate(blosum.MATRIX_NAMES):
+        for g, gaps in enumerate(GAPS):
+            cases.append((f"{name} gaps {gaps} a 1-12 x b 1-40", name, gaps,
+                          (300 + 3 * t + g, 2048, (1, 12), (1, 40)), 0))
+    prev_cap = 0
+    for k, (g, r) in enumerate(instances):
+        cap = g * r
+        tag = f"G={g} R={r}"
+        cases += [
+            (f"{tag}: a_len {prev_cap + 1}, {cap - 1}, {cap} x b 1-90",
+             "BLOSUM62", (10, 4),
+             (400 + k, 512, [prev_cap + 1, cap - 1, cap, max(1, cap // 2)],
+              (1, 90)), k),
+            (f"{tag}: 1-4 columns", "BLOSUM80", (5, 1),
+             (420 + k, 512, (prev_cap + 1, cap), (1, 4)), k),
+            (f"{tag}: tie-heavy", "BLOSUM45", (5, 1),
+             (440 + k, 512, (prev_cap + 1, cap), (1, min(cap + 20, 300)),
+              {"alphabets": ("AAG", "AGG")}), k),
+        ]
+        prev_cap = cap
+    last = len(instances) - 1
+    cap = prev_cap
+    cases += [
+        (f"two strips: a_len {cap + 1}-1119 x b 1-1119, N = 1119",
+         "BLOSUM62", (12, 2),
+         (460, 128, [cap + 1, cap + 2, 1119, 1000, 800], (1, 1119),
+          1119), last),
+        ("two strips: tie-heavy, 1-4 columns", "BLOSUM45", (5, 1),
+         (461, 128, (cap + 1, 1119), (1, 4), {"alphabets": ("AAG", "AGG")}),
+         last),
+    ]
+    return cases
 
 
 def check_result(sims, seqs, blocks):
@@ -152,9 +239,9 @@ def check_result(sims, seqs, blocks):
 
 
 def inner_loop_mix(sass: str, kernel: str) -> tuple[int, dict[str, int]]:
-    """SASS instruction count and opcode mix of the innermost loop of
-    ``kernel`` that reads shared memory (the DP loop), from ``cuobjdump
-    -sass``."""
+    """SASS instruction count and opcode mix of the innermost loop that
+    reads shared memory (the steady step loop of the DP) in the function
+    whose mangled name holds ``kernel``, from ``cuobjdump -sass``."""
     import re
     from collections import Counter
 
@@ -192,12 +279,56 @@ def _event_ms(fn, repeat=1):
 
 
 def _bound(cells, nbytes):
-    """(bound ms, bound_by) of an NW launch: OPS_PER_CELL int32 operations
-    per cell at the int32 peak against its bytes at the HBM rate."""
-    ops_ms = OPS_PER_CELL * cells / INT32_OPS_PER_S * 1e3
+    """(bound ms, bound_by, the older bound's ms) of an NW launch: its
+    operations (the larger of ALU_OPS_PER_CELL per cell at the ALU rate and
+    OPS_PER_CELL at the issue rate) against its bytes at the HBM rate; the
+    older bound held OLD_OPS_PER_CELL per cell to the ALU rate."""
+    ops_ms = max(ALU_OPS_PER_CELL * cells / ALU_OPS_PER_S,
+                 OPS_PER_CELL * cells / SCHED_OPS_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+    old_ms = max(OLD_OPS_PER_CELL * cells / ALU_OPS_PER_S * 1e3, bytes_ms)
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", old_ms)
+
+
+# the steps of api.similarity_nw, by the function that does each
+STAGES = {"encode": "encode", "_gather": "the idx[r] gathers",
+          "nw_batch": "kernels with their checks", "_fetch": "fetch",
+          "_ratio": "ratio", "_fill": "symmetric fill"}
+
+
+def host_stages(seqs) -> dict[str, float]:
+    """Seconds similarity_nw spends in each of its own steps on ``seqs``:
+    the entry point runs as it is, with each step's function in
+    dynaalign_torch.api wrapped in a timer that synchronises the card
+    before it stops.  What no step covers (the copy to the card, the pair
+    indices, the loop) is "the rest"."""
+    from dynaalign_torch import api
+
+    out = dict.fromkeys(STAGES.values(), 0.0)
+    real = {name: getattr(api, name) for name in STAGES}
+
+    def timed(name):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            res = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            out[STAGES[name]] += time.perf_counter() - t0
+            return res
+        return wrapped
+
+    try:
+        for name in STAGES:
+            setattr(api, name, timed(name))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.similarity_nw(seqs)
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(api, name, fn)
+    out["the rest"] = total - sum(out.values())
+    return out
 
 
 def _pair_batch(idx, ln, rows, cols):
@@ -205,16 +336,10 @@ def _pair_batch(idx, ln, rows, cols):
 
 
 def long_set():
-    """96 sequences of 2-9 consecutive h3n2sample proteins joined, the
-    counts drawn by np.random.default_rng(0).integers(2, 10, size=96)."""
-    from dynaalign_torch.io.datasets import load_sequences
+    """96 sequences of 2-9 consecutive h3n2sample proteins joined."""
+    from dynaalign_torch.io.datasets import joined_h3n2
 
-    ha = [s for s in load_sequences("h3n2sample") if s]
-    out, pos = [], 0
-    for k in np.random.default_rng(0).integers(2, 10, size=96):
-        out.append("".join(ha[pos : pos + k]))
-        pos += k
-    return out
+    return joined_h3n2(96, 2, 9, seed=0)
 
 
 def mixed_set():
@@ -246,6 +371,8 @@ def main() -> int:
     from dynaalign_torch.tools import probe_misalign as probe
 
     t_start = time.perf_counter()
+    global OPS_PER_CELL, ALU_OPS_PER_CELL
+    OPS_PER_CELL, ALU_OPS_PER_CELL = _ops_per_cell()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _smi()
@@ -262,40 +389,85 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    for name, per_iter in (("nw_gotoh", "STG"), ("nw_gotoh_xl", "LDS")):
+    g_main, r_main = nw_cuda.INSTANCES[-1]
+    for name, fn, rows in (
+        ("nw_gotoh", f"nw_gotoh_kernelILi{g_main}ELi{r_main}E", r_main),
+        ("nw_gotoh_xl", "nw_gotoh_xl_kernelILi1E", nw_cuda.XL_STRIP // 32),
+        ("nw_gotoh_xl", "nw_gotoh_xl_kernelILi2E", nw_cuda.XL_STRIP // 32),
+    ):
         sass = subprocess.run([cuobjdump, "-sass", built[name].path],
                               capture_output=True, text=True,
                               check=True).stdout
-        n_ins, mix = inner_loop_mix(sass, f"{name}_kernel")
-        # nw_gotoh stores five planes per cell; nw_gotoh_xl reads the
-        # substitution table once per cell
-        cells = mix.get(per_iter, 0) / (5 if per_iter == "STG" else 1)
-        print(f"  {name} DP loop: {n_ins} SASS instructions for {cells:g} "
-              f"cells = {n_ins / cells:.1f} per cell; mix "
+        n_ins, mix = inner_loop_mix(sass, fn)
+        # the steady step loop works one column of the lane's rows
+        dpx = {op: mix.get(op, 0) for op in DPX_OPCODES}
+        print(f"  {fn} step loop: {n_ins} SASS instructions for {rows} "
+              f"cells = {n_ins / rows:.1f} per cell; DPX and dp4a opcodes "
+              f"in it: {dpx}; mix "
               f"{sorted(mix.items(), key=lambda kv: -kv[1])}")
 
-    print("[3] nw_gotoh vs plain version on the card")
+    print("[3] nw_gotoh vs plain version on the card, every instantiation "
+          f"{nw_cuda.INSTANCES}")
     worst = kernel_vs_plain(dev, nw_cuda.nw_similarity_batch_cuda, [
+        *instance_cases(nw_cuda.INSTANCES),
         *_fuzz_cases(100, 2048),
         ("len 520-566", "BLOSUM62", (10, 4), (1, 1024, (520, 566),
-                                              (520, 566), 566)),
+                                              (520, 566), 566), 4),
         ("m != n: 1-80 x 400-566", "BLOSUM62", (10, 4),
-         (2, 1024, (1, 80), (400, 566))),
+         (2, 1024, (1, 80), (400, 566)), 2),
+        ("m != n: 400-566 x 1-80", "BLOSUM62", (10, 4),
+         (7, 1024, (400, 566), (1, 80)), 4),
         ("padded m+1 = 1120", "BLOSUM62", (10, 4),
-         (3, 128, (1000, 1119), (1000, 1119), 1119)),
+         (3, 128, (1000, 1119), (1000, 1119), 1119), 4),
     ])
 
-    print("[4] nw_gotoh_xl vs plain version on the card")
-    worst_xl = kernel_vs_plain(dev, nw_cuda.nw_similarity_batch_cuda_xl, [
+    # a table that is not symmetric: sub[a][b] is read, never sub[b][a]
+    skew = blosum.get_matrix(device=dev).clone()
+    skew[:24, :24] += torch.from_numpy(np.random.default_rng(470).integers(
+        -3, 4, size=(24, 24), dtype=np.int32)).to(dev)
+    for wrapper, a_range in ((nw_cuda.nw_similarity_batch_cuda, (1, 12)),
+                             (nw_cuda.nw_similarity_batch_cuda, (500, 566)),
+                             (nw_cuda.nw_similarity_batch_cuda_xl, (1, 700))):
+        args = _random_batch(dev, 471, 256, a_range, (1, 300))
+        got = wrapper(*args, skew)
+        ref = nw_similarity_batch(*args, skew)
+        if torch.equal(skew, skew.T) or not _equal(got, ref):
+            raise AssertionError(f"{wrapper.__name__} != plain on a table "
+                                 "that is not symmetric")
+        print(f"  {wrapper.__name__} vs plain, asymmetric table, a "
+              f"{a_range}: equal")
+
+    print("[4] nw_gotoh_xl vs plain version on the card, both instantiations")
+    strip = nw_cuda.XL_STRIP
+    xl_cases = [
         *_fuzz_cases(200, 2048),
         ("len 1121-2000", "BLOSUM62", (10, 4),
          (4, 256, (1121, 2000), (1121, 2000))),
         ("m != n: 40-200 x 3000-5000", "BLOSUM80", (12, 2),
          (5, 64, (40, 200), (3000, 5000))),
-        ("a_len on and next to strip edges (256, 512, 768 rows)",
-         "BLOSUM45", (5, 1), (6, 256, [0, 1, 255, 256, 257, 511, 512, 513,
-                                       767, 768], (0, 1121), 768, 1121)),
-    ])
+        (f"a_len on and next to strip edges ({strip}, {2 * strip} rows)",
+         "BLOSUM45", (5, 1),
+         (6, 256, [0, 1, strip - 1, strip, strip + 1, 2 * strip - 1,
+                   2 * strip, 2 * strip + 1], (0, 1121), 2 * strip + 1,
+          1121)),
+        ("tie-heavy over one to three strips", "BLOSUM45", (5, 1),
+         (8, 64, (1, 2 * strip + 100), (1, 300),
+          {"alphabets": ("AAG", "AGG")})),
+    ]
+    worst_xl = kernel_vs_plain(dev, nw_cuda.nw_similarity_batch_cuda_xl,
+                               xl_cases)
+    # MT and LN as two words: the launcher takes that instantiation from
+    # padded M + N = 65,536 on, where the plain version would walk 65,536
+    # diagonals; asked for by name, it runs the same batches here (phase 9
+    # runs it at its real widths, against the oracle)
+    def nw_gotoh_xl_two_words(*args, gap_open, gap_ext):
+        return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
+                            xl_words=2)[0]
+
+    worst_xl = max(worst_xl, kernel_vs_plain(
+        dev, nw_gotoh_xl_two_words,
+        [("two words: " + c[0], *c[1:])
+         for c in xl_cases[:18:3] + xl_cases[18:]]))
 
     print("[5] main path: similarity_nw on h3n2sample[:1000]")
     h3n2 = load_sequences("h3n2sample", limit=1000)
@@ -321,6 +493,24 @@ def main() -> int:
         raise AssertionError("evp_peparray[:160] != oracle or no launch")
     print(f"  evp_peparray[:160]: {evp_launches} launch(es), equal to the "
           "oracle in full")
+    evp_all = load_sequences("evp_peparray")
+    ne = len(evp_all)
+    elens = np.array([len(s) for s in evp_all], dtype=np.float64)
+    ecells = (elens.sum() ** 2 + (elens ** 2).sum()) / 2
+    nw_cuda.LAUNCHES = 0
+    ewalls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sims_e = similarity_nw(evp_all)
+        ewalls.append(time.perf_counter() - t0)
+    check_result(sims_e, evp_all, [range(24), range(ne - 24, ne)])
+    print(f"  evp_peparray, all {ne} sequences of {elens.min():.0f}-"
+          f"{elens.max():.0f} aa ({ne * (ne + 1) // 2} pairs, {ecells:.4e} "
+          f"cells): {nw_cuda.LAUNCHES // 3} launch(es) a call of nw_gotoh "
+          f"instance {nw_cuda.LAST_INSTANCE} "
+          f"{nw_cuda.INSTANCES[nw_cuda.LAST_INSTANCE]}; similarity_nw wall s"
+          f": {ewalls}; best {min(ewalls):.4f} s; equal to the oracle on "
+          "[:24, :24] and [-24:, -24:]")
 
     print("[6] timing of the main path")
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
@@ -368,7 +558,14 @@ def main() -> int:
               " == similarity_nw")
     print(f"  kernel time of each main-path chunk, ms: {chunk_ms}; sum "
           f"{sum(chunk_ms):.3f} ms = {sum(chunk_ms) / 1e3 / best:.4f} of the "
-          "best wall time (the rest: host work, gathers, copies)")
+          f"best wall time; wall - sum = {best - sum(chunk_ms) / 1e3:.4f} s "
+          "(host work, gathers, copies)")
+    stages = host_stages(h3n2)
+    total = sum(stages.values())
+    print(f"  similarity_nw n=1000 step by step, s (its own functions timed "
+          f"in place, a synchronise after each; wall {total:.4f}): "
+          + ", ".join(f"{k} {v:.4f} ({v / total:.3f})"
+                      for k, v in stages.items()))
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     for c in (1 << 16, 1 << 18, pairs):
         t0 = time.perf_counter()
@@ -380,16 +577,20 @@ def main() -> int:
     bsz, m = chunk[0].shape
     chunk_cells = float((chunk[1].double() * chunk[3].double()).sum())
     nbytes = 4 * (2 * bsz * m + 2 * bsz + 32 * 32 + 2 * bsz)
-    bound_ms, bound_by = _bound(chunk_cells, nbytes)
+    bound_ms, bound_by, old_ms = _bound(chunk_cells, nbytes)
     kernel_ms, _ = _event_ms(
         lambda: nw_cuda.nw_similarity_batch_cuda(*chunk, sub), repeat=3
     )
-    print(f"  nw_gotoh, one chunk (B={bsz}, M=N={m}, {chunk_cells:.4e} "
-          f"cells): {kernel_ms:.3f} ms; bound {bound_ms:.3f} ms by "
-          f"{bound_by} ({OPS_PER_CELL} int32 ops per cell at "
-          f"{INT32_OPS_PER_S:.4e}/s; {nbytes} bytes at {HBM_BYTES_PER_S:.3e}"
-          f" B/s) = {bound_ms / kernel_ms:.4f} of the bound; "
-          f"{chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
+    bound_text = (f"{ALU_OPS_PER_CELL} ALU-only ops per cell at "
+                  f"{ALU_OPS_PER_S:.4e}/s against {OPS_PER_CELL} at the "
+                  f"issue rate {SCHED_OPS_PER_S:.4e}/s")
+    print(f"  nw_gotoh instance {nw_cuda.LAST_INSTANCE}, one chunk (B={bsz}, "
+          f"M=N={m}, {chunk_cells:.4e} cells): {kernel_ms:.3f} ms; bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({bound_text}; {nbytes} bytes at "
+          f"{HBM_BYTES_PER_S:.3e} B/s) = {bound_ms / kernel_ms:.4f} of the "
+          f"bound ({old_ms / kernel_ms:.4f} of the older bound of "
+          f"{OLD_OPS_PER_CELL} ops per cell at the ALU rate, {old_ms:.3f} "
+          f"ms); {chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
     plain_ms = plain_chunk_ms[0]
     print(f"  plain version (correctness twin, not a yardstick), same chunk:"
           f" {plain_ms:.3f} ms")
@@ -401,7 +602,8 @@ def main() -> int:
         raise AssertionError("nw_gotoh_xl != plain on the first chunk")
     print(f"  nw_gotoh_xl on the same chunk (comparison, not the main path):"
           f" {xl_chunk_ms:.3f} ms = {bound_ms / xl_chunk_ms:.4f} of the "
-          f"bound, {kernel_ms / xl_chunk_ms:.2f}x nw_gotoh; equal to plain")
+          f"bound ({old_ms / xl_chunk_ms:.4f} of the older), "
+          f"{xl_chunk_ms / kernel_ms:.2f}x nw_gotoh's time; equal to plain")
     print("  library_ms: none (no single PyTorch call computes NW)")
     t0 = time.perf_counter()
     oracle.nw_similarity(h3n2[:24])
@@ -463,10 +665,12 @@ def main() -> int:
                              "differ")
     lb, lm = largs[0].shape
     lbytes = 4 * (2 * lb * lm + 2 * lb + 32 * 32 + 2 * lb)
-    xl_bound_ms, xl_bound_by = _bound(lcells, lbytes)
+    xl_bound_ms, xl_bound_by, xl_old_ms = _bound(lcells, lbytes)
     print(f"  nw_gotoh_xl, all {lb} pairs in one launch (M=N={lm}): "
           f"{xl_ms:.3f} ms; bound {xl_bound_ms:.3f} ms by {xl_bound_by} "
-          f"({lbytes} bytes) = {xl_bound_ms / xl_ms:.4f} of the bound; "
+          f"({lbytes} bytes) = {xl_bound_ms / xl_ms:.4f} of the bound "
+          f"({xl_old_ms / xl_ms:.4f} of the older bound, {xl_old_ms:.3f} "
+          "ms); "
           f"{lcells / xl_ms * 1e3:.4e} cell updates/s; kernel / best wall = "
           f"{xl_ms / 1e3 / lbest:.4f}")
     print(f"  plain version on the card, same pairs: {xl_plain_ms:.3f} ms; "
@@ -505,7 +709,8 @@ def main() -> int:
 
     print("[9] nw_rescore_pairs past every TPU ceiling")
     rng = np.random.default_rng(9)
-    for la, lb_ in ((13000, 13000), (12300, 17000)):
+    # the last: padded M + N = 80,000, MT and LN as two words
+    for la, lb_ in ((13000, 13000), (12300, 17000), (300, 40000)):
         seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=k))
                 for k in [la, lb_] * 4]
         pi, pj = np.arange(0, 8, 2), np.arange(1, 8, 2)
@@ -516,7 +721,10 @@ def main() -> int:
         ref = [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)]
         if not np.array_equal(got, ref) or nw_cuda.LAUNCHES_XL == 0:
             raise AssertionError(f"nw_rescore_pairs {la} x {lb_} != oracle")
-        print(f"  4 pairs of {la} x {lb_} aa (m+n = {la + lb_}): "
+        words = _build.load("nw_gotoh_xl").nw_gotoh_xl_words(
+            max(la, lb_), max(la, lb_))  # both sides padded to the longest
+        print(f"  4 pairs of {la} x {lb_} aa (m+n = {la + lb_}, MT/LN in "
+              f"{words} word(s)): "
               f"{nw_cuda.LAUNCHES_XL} nw_gotoh_xl launch(es), {r_s:.3f} s; "
               f"equal to the oracle pair by pair: {got.tolist()}")
 
@@ -547,14 +755,14 @@ def main() -> int:
         lambda: probe.probe_plain(seed, "shfl", steps))
     xors = probe.W * probe.B * steps
     pbytes = 2 * probe.MP1 * probe.B * 4
-    probe_bound_ms = max(xors / INT32_OPS_PER_S, pbytes / HBM_BYTES_PER_S)
+    probe_bound_ms = max(xors / ALU_OPS_PER_S, pbytes / HBM_BYTES_PER_S)
     probe_bound_ms *= 1e3
-    probe_bound_by = ("operations" if xors / INT32_OPS_PER_S
+    probe_bound_by = ("operations" if xors / ALU_OPS_PER_S
                       >= pbytes / HBM_BYTES_PER_S else "bytes")
     smem_ms = probe.bound_ns_per_step("shfl", clock_hz) * steps / 1e6
     print(f"  shfl, one launch of {steps} steps: {probe_ms:.3f} ms; bound "
           f"{probe_bound_ms:.4f} ms by {probe_bound_by} ({xors} xors at the "
-          f"int32 peak), {smem_ms:.3f} ms by shared memory on its 8 SMs; "
+          f"ALU rate), {smem_ms:.3f} ms by shared memory on its 8 SMs; "
           f"plain version on the card {probe_plain_ms:.3f} ms")
 
     print(f"nvidia-smi name, power.limit: {_smi()}")

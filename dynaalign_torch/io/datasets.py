@@ -59,3 +59,17 @@ def load_sequences(name: str, limit: int | None = None) -> list[str]:
     """The dataset's AA sequence column as a list of python strings."""
     seqs = load_dataset(name)[SEQUENCE_COLUMN[name]]
     return [str(s) for s in seqs[:limit] if s is not None]
+
+
+def joined_h3n2(count: int = 96, lo: int = 2, hi: int = 9,
+                seed: int = 0) -> list[str]:
+    """``count`` long sequences: h3n2sample in file order, empty entries
+    skipped, cut into runs of k consecutive proteins joined end to end, k
+    drawn by ``np.random.default_rng(seed).integers(lo, hi + 1)``.  Stands
+    in for multi-kilobase proteins, of which the bundled data hold none."""
+    ha = [s for s in load_sequences("h3n2sample") if s]
+    out, pos = [], 0
+    for k in np.random.default_rng(seed).integers(lo, hi + 1, size=count):
+        out.append("".join(ha[pos : pos + k]))
+        pos += k
+    return out

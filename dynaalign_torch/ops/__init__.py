@@ -7,16 +7,15 @@ import torch
 
 from .nw import NEG_SENTINEL, NWResult, nw_similarity_batch  # noqa: F401
 from .nw_cuda import (
+    MAX_MP1,
     SCRATCH_PLANES,
     nw_similarity_batch_cuda,
     nw_similarity_batch_cuda_xl,
 )
 
-# Largest padded max(m, n)+1 that goes to nw_gotoh (one thread per pair):
-# the range of the TPU kernel it ports, the JAX package's PALLAS_MAX_MP1
-# (ops/nw_pallas.py).  Wider batches go to nw_gotoh_xl (one warp per pair),
-# the port of _kernel_xl, which has no upper limit.
-MAX_MP1 = 1120
+# Padded max(m, n)+1 up to MAX_MP1 goes to nw_gotoh (a group of lanes per
+# pair, boundary rows in shared memory).  Wider batches go to nw_gotoh_xl
+# (one warp per pair), the port of _kernel_xl, which has no upper limit.
 
 def pick_nw_backend(device, m: int, n: int) -> str:
     """``"torch"`` (the plain version) on the CPU; on a card ``"cuda"``

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by the hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``build/kernels/`` at the repository root, named by the hash of its source,
+of every header ``csrc/*.cuh`` and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source that needs it, all at
 once.  The libraries are loaded with ``ctypes``.  A failed build raises:
 there is no fallback.
@@ -56,9 +57,13 @@ def sources() -> list[str]:
 
 
 def target(name: str) -> str:
-    """The library path for ``csrc/<name>.cu`` at its current content."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu`` at its current content and
+    that of the headers ``csrc/*.cuh``, any of which it may include."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 

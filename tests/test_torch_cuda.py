@@ -29,15 +29,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(dev, seed, n, alo, ahi, blo, bhi, pad_a=None, pad_b=None):
+def _batch(dev, seed, n, alo, ahi, blo, bhi, pad_a=None, pad_b=None,
+           letters=(ALPHABET, ALPHABET)):
     rng = np.random.default_rng(seed)
 
-    def seqs(lo, hi):
-        return ["".join(rng.choice(list(ALPHABET), size=k))
+    def seqs(lo, hi, alphabet):
+        return ["".join(rng.choice(list(alphabet), size=k))
                 for k in rng.integers(lo, hi + 1, size=n)]
 
-    ea, eb = encode(seqs(alo, ahi), pad_to=pad_a), encode(seqs(blo, bhi),
-                                                          pad_to=pad_b)
+    ea = encode(seqs(alo, ahi, letters[0]), pad_to=pad_a)
+    eb = encode(seqs(blo, bhi, letters[1]), pad_to=pad_b)
     return [torch.from_numpy(x).to(dev)
             for x in (ea.indices, ea.lengths, eb.indices, eb.lengths)]
 
@@ -68,6 +69,42 @@ def test_kernel_equals_plain_shapes(cuda, shape):
     n, alo, ahi, blo, bhi = shape
     args = _batch(cuda, 2, n, alo, ahi, blo, bhi)
     _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda))
+
+
+@pytest.mark.parametrize("inst", range(len(nw_cuda.INSTANCES)))
+def test_kernel_instances_equal_plain(cuda, inst):
+    """Each instantiation of nw_gotoh at its strip's capacity (the longest
+    a_len picks it), on 1-4 columns and on a tie-heavy low-complexity
+    batch under BLOSUM45 with gaps (5, 1)."""
+    g, r = nw_cuda.INSTANCES[inst]
+    cap = g * r
+    lo = 1 + (nw_cuda.INSTANCES[inst - 1][0] * nw_cuda.INSTANCES[inst - 1][1]
+              if inst else 0)
+    sub = blosum.get_matrix("BLOSUM45", device=cuda)
+    for seed, blo, bhi, letters in ((10, 1, 90, (ALPHABET, ALPHABET)),
+                                    (11, 1, 4, (ALPHABET, ALPHABET)),
+                                    (12, 1, cap + 20, ("AAG", "AGG"))):
+        args = _batch(cuda, seed + 3 * inst, 512, lo, cap, blo, bhi,
+                      pad_a=cap, letters=letters)
+        args[1][:2] = cap  # the capacity itself, whatever the draw
+        _assert_kernel_equals_plain(args, sub, 5, 1)
+        assert nw_cuda.LAST_INSTANCE == inst
+
+
+def test_kernel_two_strips_equal_plain(cuda):
+    """577-1,119 rows: the last instantiation over two strips, its
+    boundary row in shared memory, at the widest padded b."""
+    args = _batch(cuda, 13, 96, 577, MAX_MP1 - 1, 1, MAX_MP1 - 1,
+                  pad_a=MAX_MP1 - 1, pad_b=MAX_MP1 - 1)
+    _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda), 12, 2)
+    assert nw_cuda.LAST_INSTANCE == len(nw_cuda.INSTANCES) - 1
+
+
+def test_kernel_rejects_widths_past_its_range(cuda):
+    args = _batch(cuda, 14, 2, 5, 10, 5, 10, pad_a=MAX_MP1, pad_b=20)
+    with pytest.raises(ValueError, match="nw_gotoh takes padded"):
+        nw_cuda.nw_similarity_batch_cuda(*args,
+                                         blosum.get_matrix(device=cuda))
 
 
 def test_similarity_nw_equals_oracle_through_kernel(cuda):
@@ -116,7 +153,7 @@ def test_xl_kernel_equals_plain_fuzz(cuda, matrix, gaps):
 @pytest.mark.parametrize("shape", [
     (256, 1121, 2000, 1121, 2000),
     (64, 40, 200, 3000, 5000),  # m != n
-    (64, 255, 257, 511, 513),  # a_len next to strip edges
+    (64, nw_cuda.XL_STRIP - 1, nw_cuda.XL_STRIP + 1, 511, 513),  # strip edge
     (2, 13000, 13000, 13000, 13000),  # past every TPU ceiling
 ])
 def test_xl_kernel_equals_plain_shapes(cuda, shape):
@@ -124,6 +161,38 @@ def test_xl_kernel_equals_plain_shapes(cuda, shape):
     args = _batch(cuda, 7, n, alo, ahi, blo, bhi)
     _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda),
                                 wrapper=nw_cuda.nw_similarity_batch_cuda_xl)
+
+
+@pytest.mark.parametrize("shape", [
+    (512, 1, 80, 1, 80),
+    (64, nw_cuda.XL_STRIP - 1, nw_cuda.XL_STRIP + 1, 511, 513),
+    (64, 1, 2 * nw_cuda.XL_STRIP + 100, 1, 300),
+])
+def test_xl_two_word_instantiation_equals_plain(cuda, shape):
+    """MT and LN as two words, which the launcher takes from padded M + N =
+    65,536 on: asked for by name, small batches run through it."""
+    def two_words(*args, gap_open, gap_ext):
+        return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
+                            xl_words=2)[0]
+
+    n, alo, ahi, blo, bhi = shape
+    args = _batch(cuda, 15, n, alo, ahi, blo, bhi, letters=("AAGR", "AGGR"))
+    _assert_kernel_equals_plain(args, blosum.get_matrix("BLOSUM45",
+                                                        device=cuda), 5, 1,
+                                wrapper=two_words)
+
+
+def test_nw_rescore_pairs_two_words_at_real_width(cuda):
+    """300 x 40,000 aa: padded M + N = 80,000, past the packing limit."""
+    rng = np.random.default_rng(16)
+    seqs = ["".join(rng.choice(list(ALPHABET[:20]), size=k))
+            for k in (300, 40000, 257, 39000)]
+    pi, pj = np.array([0, 2, 0]), np.array([1, 3, 3])
+    nw_cuda.LAUNCHES_XL = 0
+    got = nw_rescore_pairs(seqs, pi, pj)
+    assert nw_cuda.LAUNCHES_XL == 1
+    np.testing.assert_array_equal(
+        got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
 
 
 def test_bucketed_mixed_set_launches_both_kernels(cuda):
@@ -161,6 +230,34 @@ def test_wrapper_rejects_int64_on_card(cuda):
     args = _batch(cuda, 4, 4, 1, 10, 1, 10)
     args[0] = args[0].long()
     with pytest.raises(TypeError, match="int32"):
+        nw_cuda.nw_similarity_batch_cuda(*args, blosum.get_matrix(device=cuda))
+
+
+def test_wrapper_rejects_scores_past_int8_on_card(cuda):
+    args = _batch(cuda, 17, 4, 1, 10, 1, 10)
+    sub = blosum.get_matrix(device=cuda).clone()
+    sub[0, 0] = 128
+    with pytest.raises(ValueError, match="sub must lie"):
+        nw_cuda.nw_similarity_batch_cuda(*args, sub)
+
+
+@pytest.mark.parametrize("wrapper", [nw_cuda.nw_similarity_batch_cuda,
+                                     nw_cuda.nw_similarity_batch_cuda_xl])
+def test_kernels_read_table_row_a_column_b(cuda, wrapper):
+    """A table that is not symmetric gives the plain version's result."""
+    sub = blosum.get_matrix(device=cuda).clone()
+    sub[:24, :24] += torch.from_numpy(np.random.default_rng(18).integers(
+        -3, 4, size=(24, 24), dtype=np.int32)).to(cuda)
+    assert not torch.equal(sub, sub.T)
+    for ahi in (12, 566, 700):
+        args = _batch(cuda, 19, 256, 1, ahi, 1, 300)
+        _assert_kernel_equals_plain(args, sub, wrapper=wrapper)
+
+
+def test_wrapper_rejects_symbols_past_pad_on_card(cuda):
+    args = _batch(cuda, 20, 4, 1, 10, 1, 10)
+    args[2][1, 0] = 25
+    with pytest.raises(ValueError, match="alphabet indices"):
         nw_cuda.nw_similarity_batch_cuda(*args, blosum.get_matrix(device=cuda))
 
 

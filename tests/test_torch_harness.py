@@ -6,8 +6,12 @@ thread, blocks in turn.  Each thread has a ``thread_local`` ``threadIdx``;
 ``__syncthreads`` is a ``std::barrier`` of the block, ``__syncwarp`` one of
 the warp, and ``__shfl_sync``/``__shfl_up_sync`` pass values through a
 per-warp array between barrier waits (two arrays used in turn, so one wait
-per shuffle suffices).  This checks a kernel's arithmetic and its warp
-hand-offs here, where no nvcc exists.  The kernel tests use it from
+per shuffle suffices), within segments of ``width`` lanes as on the card.
+Hopper's DPX intrinsics and ``__dp4a`` are defined from their documented
+meaning; dynamic shared memory is a buffer that ``launch`` fills with a
+pattern before each block, so that no block finds another's values.  This
+checks a kernel's arithmetic and its warp hand-offs here, where no nvcc
+exists.  The kernel tests use it from ``tests/test_torch_nw.py``,
 ``tests/test_torch_xl.py`` and ``tests/test_torch_probe.py``.
 """
 
@@ -30,8 +34,11 @@ HARNESS = r"""
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 
+struct alignas(8) int2 { int x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 static thread_local Dim3 threadIdx;
 static Dim3 blockIdx, blockDim;
@@ -45,11 +52,15 @@ inline int warp() { return threadIdx.x / 32; }
 inline int lane() { return threadIdx.x % 32; }
 
 // Runs body() as `blocks` blocks of `threads` threads, blocks in turn.
+// dyn: the blocks' dynamic shared memory, dyn_words ints, given a pattern
+// that differs from block to block before each.
 template <class F>
-void launch(int blocks, int threads, F body) {
+void launch(int blocks, int threads, F body, int* dyn = nullptr,
+            size_t dyn_words = 0) {
   blockDim.x = threads;
   for (int b = 0; b < blocks; ++b) {
     blockIdx.x = b;
+    for (size_t k = 0; k < dyn_words; ++k) dyn[k] = 0x5a5a0000 + 977 * b;
     std::barrier<> bar(threads);
     block_bar = &bar;
     warp_bar.clear();
@@ -72,17 +83,34 @@ inline void __syncthreads() { harness::block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   harness::warp_bar[harness::warp()]->arrive_and_wait();
 }
-inline int __shfl_sync(unsigned, int v, int src) {
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   const int turn = harness::shfl_turn;
   int* buf = &harness::shfl_buf[(harness::warp() * 2 + turn) * 32];
   harness::shfl_turn ^= 1;
-  buf[harness::lane()] = v;
-  harness::warp_bar[harness::warp()]->arrive_and_wait();
-  return buf[src & 31];
-}
-inline int __shfl_up_sync(unsigned mask, int v, unsigned d) {
   const int l = harness::lane();
-  return __shfl_sync(mask, v, l >= (int)d ? l - (int)d : l);
+  buf[l] = v;
+  harness::warp_bar[harness::warp()]->arrive_and_wait();
+  return buf[(l & ~(width - 1)) | (src & (width - 1))];
+}
+inline int __shfl_up_sync(unsigned mask, int v, unsigned d, int width = 32) {
+  const int pos = harness::lane() & (width - 1);  // lane of its segment
+  return __shfl_sync(mask, v, pos >= (int)d ? pos - (int)d : pos, width);
+}
+// DPX, as NVIDIA documents the intrinsics: max(a + b, c); max(a, b) with
+// *pred = (a >= b).  __dp4a: c plus the dot product of the four signed
+// bytes of a and b.
+inline int __viaddmax_s32(int a, int b, int c) {
+  const int s = a + b;
+  return s > c ? s : c;
+}
+inline int __vibmax_s32(int a, int b, bool* pred) {
+  *pred = a >= b;
+  return *pred ? a : b;
+}
+inline int __dp4a(int a, int b, int c) {
+  for (int k = 0; k < 4; ++k)
+    c += (int)(signed char)(a >> (8 * k)) * (int)(signed char)(b >> (8 * k));
+  return c;
 }
 """
 
@@ -108,6 +136,31 @@ def ptr(x: np.ndarray):
 
 _SELF_SHIM = r"""
 #define __shared__ static
+extern int self_dyn[];
+static int gridDim_x;
+// width[w][g] = [shfl_up by 1, shfl from lane l ^ w, shfl from lane 5] within
+// segments of 1 << w lanes
+__global__ void width_kernel(int* out) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x, l = threadIdx.x & 31;
+  const int n = gridDim_x * blockDim.x;
+  for (int w = 0; w <= 5; ++w) {
+    int* o = out + 3 * (w * n + g);
+    o[0] = __shfl_up_sync(0xffffffffu, g, 1, 1 << w);
+    o[1] = __shfl_sync(0xffffffffu, g, l ^ w, 1 << w);
+    o[2] = __shfl_sync(0xffffffffu, g, 5, 1 << w);
+  }
+}
+// out[g] = what thread g finds in its word of dynamic shared memory before
+// it writes there, plus what its neighbour wrote, read after a barrier
+__global__ void dyn_kernel(int* out) {
+  const int t = threadIdx.x, g = blockIdx.x * blockDim.x + t;
+  const int before = self_dyn[t];
+  __syncthreads();
+  self_dyn[t] = g;
+  __syncthreads();
+  out[2 * g] = before;
+  out[2 * g + 1] = self_dyn[(t + 1) % blockDim.x];
+}
 // out[b, t] = [shfl_up by 1, shfl_up by 3, shfl from lane 31 - l, block sum
 // of thread ids read after a barrier]
 __global__ void harness_kernel(int* out) {
@@ -126,6 +179,24 @@ __global__ void harness_kernel(int* out) {
 }
 extern "C" void harness_run(int blocks, int threads, int* out) {
   harness::launch(blocks, threads, [&] { harness_kernel(out); });
+}
+extern "C" void width_run(int blocks, int threads, int* out) {
+  gridDim_x = blocks;
+  harness::launch(blocks, threads, [&] { width_kernel(out); });
+}
+int self_dyn[64];
+extern "C" void dyn_run(int blocks, int* out) {
+  harness::launch(blocks, 64, [&] { dyn_kernel(out); }, self_dyn, 64);
+}
+extern "C" void dpx_run(int n, const int* a, const int* b, const int* c,
+                        int* out) {
+  for (int k = 0; k < n; ++k) {
+    bool p;
+    out[4 * k] = __viaddmax_s32(a[k], b[k], c[k]);
+    out[4 * k + 1] = __vibmax_s32(a[k], b[k], &p);
+    out[4 * k + 2] = p;
+    out[4 * k + 3] = __dp4a(a[k], b[k], c[k]);
+  }
 }
 """
 
@@ -148,3 +219,60 @@ def test_harness_shuffles_and_barriers(tmp_path):
     sums = np.array([np.arange(b * threads, (b + 1) * threads).sum()
                      for b in range(blocks)])
     np.testing.assert_array_equal(out[:, 3], sums[block])
+
+
+def test_harness_width_shuffles(tmp_path):
+    """With a width the shuffles stay inside segments of that many lanes:
+    shfl_up keeps a segment's first lanes' own values, and a source lane
+    is taken modulo the width, from the caller's own segment."""
+    fn = build_host(tmp_path, "self", _SELF_SHIM).width_run
+    fn.restype = None
+    blocks, threads = 2, 64
+    n = blocks * threads
+    out = np.zeros((6, n, 3), np.int32)
+    fn(blocks, threads, ptr(out))
+    g = np.arange(n)
+    lane = g % 32
+    for w in range(6):
+        width = 1 << w
+        pos, seg = lane % width, g - lane % width
+        np.testing.assert_array_equal(out[w, :, 0],
+                                      np.where(pos >= 1, g - 1, g))
+        np.testing.assert_array_equal(out[w, :, 1],
+                                      seg + (lane ^ w) % width)
+        np.testing.assert_array_equal(out[w, :, 2], seg + 5 % width)
+
+
+def test_harness_dynamic_shared_memory(tmp_path):
+    """A block starts on a pattern, not on what the block before it left,
+    and sees its own threads' writes after a barrier."""
+    fn = build_host(tmp_path, "self", _SELF_SHIM).dyn_run
+    fn.restype = None
+    blocks = 3
+    out = np.zeros((blocks * 64, 2), np.int32)
+    fn(blocks, ptr(out))
+    g = np.arange(blocks * 64)
+    np.testing.assert_array_equal(out[:, 0], 0x5A5A0000 + 977 * (g // 64))
+    np.testing.assert_array_equal(out[:, 1], g - g % 64 + (g + 1) % 64)
+
+
+def test_harness_dpx_and_dp4a(tmp_path):
+    """The host definitions of the DPX intrinsics and __dp4a against numpy,
+    ties and negative bytes included."""
+    rng = np.random.default_rng(0)
+    n = 4096
+    a, b, c = (rng.integers(-2**29, 2**29, size=n).astype(np.int32)
+               for _ in range(3))
+    b[::3] = a[::3]  # ties
+    c[::5] = (a[::5] + b[::5])
+    out = np.zeros((n, 4), np.int32)
+    fn = build_host(tmp_path, "self", _SELF_SHIM).dpx_run
+    fn.restype = None
+    fn(n, ptr(a), ptr(b), ptr(c), ptr(out))
+    a64, b64, c64 = a.astype(np.int64), b.astype(np.int64), c.astype(np.int64)
+    np.testing.assert_array_equal(out[:, 0], np.maximum(a64 + b64, c64))
+    np.testing.assert_array_equal(out[:, 1], np.maximum(a, b))
+    np.testing.assert_array_equal(out[:, 2], a >= b)
+    dot = sum(a.view(np.int8)[k::4].astype(np.int64)
+              * b.view(np.int8)[k::4].astype(np.int64) for k in range(4))
+    np.testing.assert_array_equal(out[:, 3], c64 + dot)

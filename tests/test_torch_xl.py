@@ -34,7 +34,7 @@ from dynaalign_torch.ops import nw_cuda  # noqa: E402
 from dynaalign_torch.ops.nw import nw_similarity_batch  # noqa: E402
 
 GAPS = [(10, 4), (5, 1), (12, 2)]
-STRIP = 32 * 8  # DP rows per warp pass of nw_gotoh_xl.cu (32 lanes x XL_R)
+STRIP = nw_cuda.XL_STRIP  # DP rows per warp pass of nw_gotoh_xl.cu
 
 
 def _seqs(rng, n, lo, hi):
@@ -103,36 +103,90 @@ def test_plain_equals_jax_xl_kernel_interpret(gaps):
 _XL_SHIM = r"""
 #define __shared__ static
 #include "nw_gotoh_xl.cu"
+// nwd: 1 runs the packed instantiation (MT and LN in one word), 2 the
+// two-word one; the launcher picks by M + N, here the test does
 extern "C" void nw_gotoh_xl_host(const int* a_idx, const int* a_len,
     const int* b_idx, const int* b_len, const int* sub, int B, int M, int N,
-    int go, int ge, int* bnd, int* mt, int* ln, int warps) {
-  harness::launch((B + warps - 1) / warps, 32 * warps, [&] {
-    nw_gotoh_xl_kernel(a_idx, a_len, b_idx, b_len, sub, B, M, N, go, ge,
-                       bnd, mt, ln);
+    int go, int ge, int* bnd, int* mt, int* ln, int nwd) {
+  harness::launch((B + XL_WARPS - 1) / XL_WARPS, 32 * XL_WARPS, [&] {
+    if (nwd == 1) {
+      nw_gotoh_xl_kernel<1>(a_idx, a_len, b_idx, b_len, sub, B, M, N, go, ge,
+                            bnd, mt, ln);
+    } else {
+      nw_gotoh_xl_kernel<2>(a_idx, a_len, b_idx, b_len, sub, B, M, N, go, ge,
+                            bnd, mt, ln);
+    }
   });
 }
 """
+NWDS = [1, 2]  # path words: the packed and the two-word instantiation
 
 
 @pytest.fixture(scope="module")
-def xl_host(tmp_path_factory):
-    fn = build_host(tmp_path_factory.mktemp("xl_host"), "nw_gotoh_xl",
-                    _XL_SHIM).nw_gotoh_xl_host
+def xl_lib(tmp_path_factory):
+    return build_host(tmp_path_factory.mktemp("xl_host"), "nw_gotoh_xl",
+                      _XL_SHIM)
+
+
+@pytest.fixture(scope="module")
+def xl_host(xl_lib):
+    fn = xl_lib.nw_gotoh_xl_host
     fn.restype = None
 
-    def run(arrs, matrix="BLOSUM62", go=10, ge=4, warps=4):
+    def run(arrs, matrix="BLOSUM62", go=10, ge=4, nwd=1):
+        """``matrix``: a BLOSUM name or a [32, 32] table."""
         a, la, b, lb = [np.ascontiguousarray(x, np.int32) for x in arrs]
         bsz, m = a.shape
         n = b.shape[1]
-        sub = np.ascontiguousarray(jblosum.get_matrix(matrix), np.int32)
+        if isinstance(matrix, str):
+            matrix = jblosum.get_matrix(matrix)
+        # the kernel takes the table transposed
+        sub = np.ascontiguousarray(np.asarray(matrix).T, np.int32)
         bnd = np.full(nw_cuda.SCRATCH_PLANES["nw_gotoh_xl"] * (n + 1) * bsz,
                       -7, np.int32)
         mt, ln = np.full(bsz, -7, np.int32), np.full(bsz, -7, np.int32)
         fn(ptr(a), ptr(la), ptr(b), ptr(lb), ptr(sub), bsz, m, n, go, ge,
-           ptr(bnd), ptr(mt), ptr(ln), warps)
+           ptr(bnd), ptr(mt), ptr(ln), nwd)
         return mt, ln
 
     return run
+
+
+def test_xl_strip_mirrors_the_source():
+    """nw_cuda.XL_STRIP, which it reads from the source, is 32 * XL_R."""
+    import os
+    import re
+
+    from dynaalign_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "nw_gotoh_xl.cu")) as f:
+        rows = int(re.search(r"#define XL_R (\d+)", f.read())[1])
+    assert nw_cuda.XL_STRIP == 32 * rows
+
+
+def test_xl_path_words_follow_the_width(xl_lib):
+    """MT and LN share a word while padded M + N < 65,536."""
+    words = xl_lib.nw_gotoh_xl_words
+    assert [words(m, n) for m, n in ((1, 1), (32767, 32768), (65534, 1))] \
+        == [1, 1, 1]
+    assert [words(m, n) for m, n in ((32768, 32768), (65535, 1),
+                                     (300, 80000), (40000, 40000))] \
+        == [2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("nwd", NWDS)
+def test_xl_source_reads_table_row_a_column_b(xl_host, nwd):
+    """A table that is not symmetric: a cell scores sub[a_i][b_j]."""
+    rng = np.random.default_rng(46)
+    sub_np = np.array(jblosum.get_matrix("BLOSUM50"), np.int32)
+    sub_np[:24, :24] += rng.integers(-3, 4, size=(24, 24), dtype=np.int32)
+    assert (sub_np != sub_np.T).any()
+    arrs = _batch(_seqs(rng, 6, 1, STRIP + 30), _seqs(rng, 6, 1, 60))
+    ref = nw_similarity_batch(*[torch.from_numpy(x) for x in arrs],
+                              torch.from_numpy(sub_np), gap_open=12,
+                              gap_ext=2)
+    _assert_equal(xl_host(arrs, sub_np, 12, 2, nwd=nwd),
+                  (ref.matches.numpy(), ref.length.numpy()))
 
 
 @pytest.mark.parametrize("gaps", GAPS)
@@ -141,36 +195,40 @@ def test_xl_source_equals_plain_fuzz(xl_host, matrix, gaps):
     rng = np.random.default_rng(
         40 + 3 * jblosum.MATRIX_NAMES.index(matrix) + GAPS.index(gaps))
     arrs = _batch(_seqs(rng, 6, 1, 80), _seqs(rng, 6, 1, 80))
-    _assert_equal(xl_host(arrs, matrix, *gaps), _plain(arrs, matrix, *gaps))
+    ref = _plain(arrs, matrix, *gaps)
+    for nwd in NWDS:
+        _assert_equal(xl_host(arrs, matrix, *gaps, nwd=nwd), ref)
 
 
 @pytest.mark.parametrize("case", [
-    (3, 300, 700, 20, 60),  # 2-3 strips of rows, few columns
+    (3, STRIP + 50, 2 * STRIP + 60, 20, 60),  # 2-3 strips, few columns
     (3, 20, 60, 300, 700),  # one strip, many columns
-    (3, 500, 600, 280, 330),  # 2-3 strips, m != n
+    (3, STRIP + 10, STRIP + 120, 280, 330),  # 2 strips, m != n
     # 1-4 columns: the traceback turns at column 1, where each lane's first
     # row takes its diagonal from the column-0 border
-    (24, 300, 700, 1, 4),
+    (24, STRIP // 2, 2 * STRIP + 60, 1, 4),
 ])
-def test_xl_source_equals_plain_across_strips(xl_host, case):
+@pytest.mark.parametrize("nwd", NWDS)
+def test_xl_source_equals_plain_across_strips(xl_host, case, nwd):
     n, alo, ahi, blo, bhi = case
     rng = np.random.default_rng(alo + blo)
     arrs = _batch(_seqs(rng, n, alo, ahi), _seqs(rng, n, blo, bhi))
-    _assert_equal(xl_host(arrs, "BLOSUM80", 5, 1),
+    _assert_equal(xl_host(arrs, "BLOSUM80", 5, 1, nwd=nwd),
                   _plain(arrs, "BLOSUM80", 5, 1))
 
 
-def test_xl_source_edge_lengths(xl_host):
+@pytest.mark.parametrize("nwd", NWDS)
+def test_xl_source_edge_lengths(xl_host, nwd):
     """Empty sides, the empty pair, length 1, a_len on and next to strip
     edges, padding past the lengths, and a batch that leaves the last
-    block's warps idle (7 pairs, 4 warps per block)."""
+    block's warps idle (7 pairs, 2 warps per block)."""
     rng = np.random.default_rng(50)
     a_lens = [0, 5, 0, 1, STRIP - 1, STRIP, STRIP + 1, 2 * STRIP, 1, 9]
     b_lens = [7, 0, 0, 1, 12, 40, 3, 17, 30, 1]
     a = ["".join(rng.choice(list(ALPHABET), size=k)) for k in a_lens]
     b = ["".join(rng.choice(list(ALPHABET), size=k)) for k in b_lens]
     arrs = _batch(a, b, 2 * STRIP + 3, 45)
-    got = xl_host(arrs)
+    got = xl_host(arrs, nwd=nwd)
     _assert_equal(got, _plain(arrs))
     assert (got[0][:3] == 0).all() and list(got[1][:3]) == [7, 5, 0]
     sims = _ratio(got)
@@ -179,19 +237,36 @@ def test_xl_source_edge_lengths(xl_host):
         sims, [joracle.nw_pair(x, y) if x or y else np.nan
                for x, y in zip(a, b)])
     part = tuple(x[:7] for x in arrs)
-    _assert_equal(xl_host(part, warps=4), _plain(part))
-    _assert_equal(xl_host(part, warps=1), _plain(part))
+    _assert_equal(xl_host(part, nwd=nwd), _plain(part))
 
 
-def test_xl_source_equals_oracle_on_h3n2_joins(xl_host):
+@pytest.mark.parametrize("nwd", NWDS)
+def test_xl_source_equals_oracle_on_h3n2_joins(xl_host, nwd):
     """3 pairs of two h3n2sample HA proteins joined (>= 1,132 aa)."""
     seqs = load_sequences("h3n2sample", 12)
     joins = [seqs[2 * k] + seqs[2 * k + 1] for k in range(6)]
     pairs = list(zip(joins[0::2], joins[1::2]))
     assert min(len(s) for s in joins) >= 1132
-    got = xl_host(_batch([p[0] for p in pairs], [p[1] for p in pairs]))
+    got = xl_host(_batch([p[0] for p in pairs], [p[1] for p in pairs]),
+                  nwd=nwd)
     np.testing.assert_array_equal(
         _ratio(got), [joracle.nw_pair(x, y) for x, y in pairs])
+
+
+@pytest.mark.parametrize("nwd", NWDS)
+def test_xl_source_tie_heavy(xl_host, nwd):
+    """Low-complexity sequences under BLOSUM45 with gaps (5, 1), over two
+    strips: ties between diag, ix and iy at many cells."""
+    rng = np.random.default_rng(45)
+    a = ["".join(rng.choice(list("AAG"), size=k))
+         for k in (STRIP + 44, STRIP + 1, 40, 9)]
+    b = ["".join(rng.choice(list("AGG"), size=k)) for k in (60, 35, 50, 3)]
+    arrs = _batch(a, b)
+    got = xl_host(arrs, "BLOSUM45", 5, 1, nwd=nwd)
+    _assert_equal(got, _plain(arrs, "BLOSUM45", 5, 1))
+    np.testing.assert_array_equal(
+        _ratio(got), [joracle.nw_pair(x, y, "BLOSUM45", 5, 1)
+                      for x, y in zip(a, b)])
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +326,9 @@ def test_launches_are_sized_in_bytes(monkeypatch):
     assert -(-500_500 // api.DEFAULT_CHUNK) == 4
     assert api.LAUNCH_BYTES // ops.pair_bytes(12_288, 12_288) < \
         api.DEFAULT_CHUNK
-    assert ops.pair_bytes(1119, 10) == 4 * (1119 + 10 + 4) + 24 * 11
-    assert ops.pair_bytes(1120, 10) == 4 * (1120 + 10 + 4) + 20 * 11
+    # nw_gotoh takes no scratch; nw_gotoh_xl a boundary row of 4 planes
+    assert ops.pair_bytes(1119, 10) == 4 * (1119 + 10 + 4)
+    assert ops.pair_bytes(1120, 10) == 4 * (1120 + 10 + 4) + 16 * 11
     sizes = []
     real = api.nw_batch
 
