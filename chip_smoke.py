@@ -6,7 +6,7 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
-     started together), printing the ptxas register/shared-memory/spill
+     started together) and the two C++ libraries (g++), printing the ptxas register/shared-memory/spill
      lines and, for the step loop of both NW kernels, the SASS instructions
      per DP cell and whether the DPX opcodes are in its mix;
   3. nw_gotoh against its plain PyTorch version on the card, exactly, on
@@ -23,20 +23,40 @@ Phases (any failure raises; the exit code is then non-zero):
      evp_peparray[:160] in full; and timed on all 641 evp_peparray 12-mers;
   6. timing of that path: end to end (best of 3) and stage by stage (the
      entry point's own steps, timed in place); every chunk through the
-     kernel and the plain version, each held equal to the other and to the
-     main path's result; the kernel on one chunk beside its bound, and
-     nw_gotoh_xl on the same chunk; the serial oracle's rate;
+     kernel, held equal to the main path's result, and the first chunk
+     through the plain version too; the kernel on that chunk beside its
+     bound, and nw_gotoh_xl on the same chunk; the serial oracle's rate;
   7. the long path: similarity_nw on 96 joins of h3n2sample proteins
      (624-5,094 aa, 4,656 pairs) through nw_gotoh_xl alone, against the
-     oracle on two 16x16 blocks and the plain version on every pair, timed
-     beside its bound and the oracle's rate;
+     oracle on two 16x16 blocks, the kernel on every pair and the plain
+     version on every fourth, timed beside its bound and the oracle's rate;
   8. similarity_nw_bucketed on a mixed set (12-mers, HA, 2-3 HA joined)
      launching both NW kernels, equal to similarity_nw and the oracle;
   9. nw_rescore_pairs past every TPU ceiling (13,000 x 13,000 and
      12,300 x 17,000 aa, and 300 x 40,000 aa through nw_gotoh_xl's two-word
      instantiation) against the oracle;
  10. the shift probe: every kind against its plain version, ns per step
-     and the marginals of the shuffle and the shifted load.
+     and the marginals of the shuffle and the shifted load;
+ 11. MinHash: similarity_mh on the 641 evp_peparray 12-mers (k=2,
+     n_hash=50) equal to the seeded oracle in full; signatures of
+     h3n2sample[:1000] (k=4, n_hash=500) equal to the oracle's bit for bit;
+     k = 1, 3, 5, 8 on a mixed set; card equal to CPU; timed on all 8,103
+     h3n2sample proteins (k=4, n_hash=500) stage by stage, each stage
+     beside its bound, with the peak device memory;
+ 12. top-k: the tie canary (96 x 8 signatures over {0, 1, 2}, k=7) and
+     minhash_topk on the 65,339 allunique 12-mers (top_k=64) against a
+     stable host sort of host-computed counts on the first and last 256
+     rows, timed;
+ 13. hybrid: similarity_hybrid on h3n2sample[:1000] (kept entries equal
+     to phase 5's NW matrix, the rest 0, through nw_gotoh) and on the long
+     set (through nw_gotoh_xl, against phase 7's matrix);
+     similarity_hybrid_sparse at top_k = N - 1 equal to the dense result;
+     the viral-panel configuration at full size (herv, 5,701 12-mers)
+     timed by stage, a 256-pair sample against the oracle;
+ 14. clustering: clusterbreak on the 641 evp_peparray 12-mers, card equal
+     to CPU; cluster_large and cluster_large_exact on allunique with their
+     stage timings; Louvain's native pass equal to its numpy pass on
+     allunique[:4096].
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -291,44 +311,54 @@ def _bound(cells, nbytes):
             "operations" if ops_ms >= bytes_ms else "bytes", old_ms)
 
 
-# the steps of api.similarity_nw, by the function that does each
-STAGES = {"encode": "encode", "_gather": "the idx[r] gathers",
-          "nw_batch": "kernels with their checks", "_fetch": "fetch",
-          "_ratio": "ratio", "_fill": "symmetric fill"}
+def stage_times(stages, call):
+    """(seconds by label, what ``call`` returned): ``call()`` runs as it
+    is, with each function named in ``stages`` ({(module, name): label})
+    wrapped in a timer that synchronises the card before it stops.  What no
+    stage covers (copies to the card, indices, loops) is "the rest"."""
+    out = dict.fromkeys(stages.values(), 0.0)
+    real = {key: getattr(*key) for key in stages}
 
-
-def host_stages(seqs) -> dict[str, float]:
-    """Seconds similarity_nw spends in each of its own steps on ``seqs``:
-    the entry point runs as it is, with each step's function in
-    dynaalign_torch.api wrapped in a timer that synchronises the card
-    before it stops.  What no step covers (the copy to the card, the pair
-    indices, the loop) is "the rest"."""
-    from dynaalign_torch import api
-
-    out = dict.fromkeys(STAGES.values(), 0.0)
-    real = {name: getattr(api, name) for name in STAGES}
-
-    def timed(name):
+    def timed(key):
         def wrapped(*args, **kw):
             t0 = time.perf_counter()
-            res = real[name](*args, **kw)
+            res = real[key](*args, **kw)
             torch.cuda.synchronize()
-            out[STAGES[name]] += time.perf_counter() - t0
+            out[stages[key]] += time.perf_counter() - t0
             return res
         return wrapped
 
     try:
-        for name in STAGES:
-            setattr(api, name, timed(name))
+        for key in stages:
+            setattr(*key, timed(key))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        api.similarity_nw(seqs)
+        res = call()
         total = time.perf_counter() - t0
     finally:
-        for name, fn in real.items():
-            setattr(api, name, fn)
+        for key, fn in real.items():
+            setattr(*key, fn)
     out["the rest"] = total - sum(out.values())
-    return out
+    return out, res
+
+
+def _stage_text(stages: dict[str, float]) -> str:
+    total = sum(stages.values())
+    return (f"wall {total:.4f}: " + ", ".join(
+        f"{k} {v:.4f} ({v / total:.3f})" for k, v in stages.items()))
+
+
+def host_stages(seqs) -> dict[str, float]:
+    """Seconds similarity_nw spends in each of its own steps on ``seqs``,
+    by the function of dynaalign_torch.api that does each."""
+    from dynaalign_torch import api
+
+    return stage_times({
+        (api, "encode"): "encode", (api, "_gather"): "the idx[r] gathers",
+        (api, "nw_batch"): "kernels with their checks",
+        (api, "_fetch"): "fetch", (api, "_ratio"): "ratio",
+        (api, "_fill"): "symmetric fill",
+    }, lambda: api.similarity_nw(seqs))[0]
 
 
 def _pair_batch(idx, ln, rows, cols):
@@ -354,6 +384,359 @@ def mixed_set():
         joins.append("".join(full[pos : pos + k]))
         pos += k
     return load_sequences("evp_peparray", 64) + ha[:64] + joins
+
+
+def _best_of(fn, repeat=3):
+    """(wall seconds of each call, the last result), each call ending in a
+    synchronise."""
+    walls = []
+    for _ in range(repeat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, out
+
+
+def _ops_per_hash(k: int) -> int:
+    """Integer operations ops/murmur3.py spends on one hash of the
+    [n, P, H] tensor, with a rotate counted as shift, shift, or: each
+    4-byte block xor 1 + rotate 3 + multiply 1 + add 1; the tail's xor 1;
+    the finaliser's xor with k 1, three shift-and-xor 6 and two multiplies
+    2; and the unsigned min over positions 1."""
+    return 6 * (k // 4) + (1 if k & 3 else 0) + 9 + 1
+
+
+def _pair_ops_bound(n_rows: int, n: int, n_hash: int, out_bytes: int):
+    """(bound ms, bound_by, ops ms, bytes ms) of comparing ``n_rows`` rows'
+    signatures with all ``n`` rows': one compare and one add per slot at
+    the ALU rate; the signatures read once and the result written once."""
+    ops_ms = 2.0 * n_rows * n * n_hash / ALU_OPS_PER_S * 1e3
+    bytes_ms = (4.0 * n * n_hash + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
+def _stable_topk(sigs: np.ndarray, rows, k: int, step: int = 64):
+    """(counts, indices) [len(rows), k] by a stable descending host sort of
+    host-computed agreement counts: equal counts lowest index first."""
+    vals, idx = [], []
+    for s in range(0, len(rows), step):
+        r = np.asarray(rows[s : s + step])
+        counts = (sigs[r][:, None, :] == sigs[None, :, :]).sum(
+            -1, dtype=np.int64)
+        counts[np.arange(len(r)), r] = -1
+        order = np.stack([np.argsort(-c, kind="stable")[:k] for c in counts])
+        idx.append(order)
+        vals.append(np.take_along_axis(counts, order, axis=1))
+    return np.concatenate(vals), np.concatenate(idx)
+
+
+def phase_minhash(dev, evp_all, h3n2_all):
+    """[11] MinHash against the seeded oracle, and its stage times."""
+    from dynaalign_torch import api, oracle, similarity_mh
+    from dynaalign_torch.encode import encode
+    from dynaalign_torch.ops import minhash
+
+    print("[11] MinHash against the seeded oracle")
+    got = similarity_mh(evp_all, 2, 50)
+    if not np.array_equal(got, oracle.minhash_similarity(evp_all, 2, 50, 0)):
+        raise AssertionError("similarity_mh != oracle on evp_peparray")
+    if not np.array_equal(got, similarity_mh(evp_all, 2, 50, device="cpu")):
+        raise AssertionError("similarity_mh: card != cpu on evp_peparray")
+    walls, _ = _best_of(lambda: similarity_mh(evp_all, 2, 50))
+    print(f"  similarity_mh, all {len(evp_all)} evp_peparray 12-mers, k=2 "
+          "n_hash=50: equal to the oracle in full and to device='cpu'; wall "
+          f"s {walls}; best {min(walls):.4f} s")
+
+    sub = h3n2_all[:1000]
+    enc = encode(sub, validate=False)
+    sigs = minhash.signatures_to_numpy(minhash.minhash_signatures(
+        enc.ascii, enc.lengths, k=4, n_hash=500))
+    t0 = time.perf_counter()
+    ref = oracle.minhash_signatures(sub, 4, 500, 0)
+    oracle_s = time.perf_counter() - t0
+    if sigs.dtype != np.uint32 or not np.array_equal(sigs, ref):
+        raise AssertionError("minhash_signatures != oracle on h3n2[:1000]")
+    print("  minhash_signatures, h3n2sample[:1000], k=4 n_hash=500: equal to "
+          f"the oracle bit for bit (the serial oracle took {oracle_s:.3f} s)")
+
+    rng = np.random.default_rng(11)
+    mixed = (evp_all[:40] + [s[:int(c)] for s, c in zip(
+        h3n2_all[:40], rng.integers(0, 200, size=40))] + ["", "A", "AR"])
+    for k in (1, 3, 5, 8):
+        got = similarity_mh(mixed, k, 64, seed=2**31 + k)
+        if not np.array_equal(
+            got, oracle.minhash_similarity(mixed, k, 64, 2**31 + k)
+        ) or not np.array_equal(
+            got, similarity_mh(mixed, k, 64, seed=2**31 + k, device="cpu")
+        ):
+            raise AssertionError(f"similarity_mh != oracle or cpu at k={k}")
+    print(f"  similarity_mh, {len(mixed)} sequences of 0-199 aa, k = 1, 3, "
+          "5, 8, n_hash=64: equal to the oracle and to device='cpu'")
+
+    # full width: the similarity of the clusterbreak configuration on h3n2
+    k, n_hash = 4, 500
+    n = len(h3n2_all)
+    lens = np.array([len(s) for s in h3n2_all])
+    p = int(lens.max()) - k + 1
+    hashes = int(np.maximum(lens - k + 1, 0).sum()) * n_hash
+    torch.cuda.reset_peak_memory_stats()
+    walls, sims = _best_of(lambda: similarity_mh(h3n2_all, k, n_hash))
+    peak = torch.cuda.max_memory_allocated()
+    if sims.shape != (n, n) or not (sims == sims.T).all() or not (
+        np.diag(sims) == 1.0).all() or sims.min() < 0 or sims.max() > 1:
+        raise AssertionError("similarity_mh on h3n2sample: bad matrix")
+    pick = np.r_[0:24, n - 24 : n]
+    if not np.array_equal(sims[np.ix_(pick, pick)], oracle.minhash_similarity(
+            [h3n2_all[i] for i in pick], k, n_hash, 0)):
+        raise AssertionError("similarity_mh != oracle on h3n2sample block")
+    best = min(walls)
+    print(f"  similarity_mh, all {n} h3n2sample proteins, k={k} n_hash="
+          f"{n_hash} ({hashes:.4e} hashes of real windows, {n * p * n_hash:.4e}"
+          f" with padding; {n * n * n_hash:.4e} slot compares): wall s "
+          f"{walls}; best {best:.4f} s = {n / best:.1f} sequences/s, "
+          f"{n * n / best:.4e} pairs/s; peak device memory {peak} bytes; "
+          "equal to the oracle on the first and last 24 sequences")
+    del sims
+    stages, _ = stage_times({
+        (api, "encode"): "encode",
+        (api, "minhash_signatures"): "signatures",
+        (minhash, "signature_agreement_counts"): "agreement",
+        (minhash, "fetch_counts"): "fetch",
+        (minhash, "counts_to_similarity"): "divide and fill",
+    }, lambda: similarity_mh(h3n2_all, k, n_hash).shape)
+    print("  step by step, s (its own functions timed in place), "
+          + _stage_text(stages))
+
+    enc = encode(h3n2_all, validate=False)
+    tok = torch.from_numpy(enc.ascii).to(dev)
+    ln = torch.from_numpy(enc.lengths).to(dev)
+    sig_ms, sigs = _event_ms(lambda: minhash.minhash_signatures(
+        tok, ln, k=k, n_hash=n_hash), repeat=2)
+    agree_ms, _ = _event_ms(
+        lambda: minhash.signature_agreement_counts(sigs), repeat=2)
+    ops = _ops_per_hash(k)
+    sig_ops_ms = hashes * ops / ALU_OPS_PER_S * 1e3
+    sig_bytes_ms = (tok.numel() + 4 * n + 4 * n * n_hash) / HBM_BYTES_PER_S
+    sig_bound = max(sig_ops_ms, sig_bytes_ms * 1e3)
+    a_bound, a_by, a_ops_ms, a_bytes_ms = _pair_ops_bound(
+        n, n, n_hash, 4 * n * n)
+    moved = 2.0 * n * n * n_hash + 4.0 * n * n  # the booleans, out and back
+    print(f"  signatures alone (CUDA events): {sig_ms:.3f} ms; bound "
+          f"{sig_bound:.3f} ms by operations ({ops} integer operations per "
+          f"hash at {ALU_OPS_PER_S:.4e}/s; bytes {sig_bytes_ms * 1e3:.4f} "
+          f"ms) = {sig_bound / sig_ms:.4f} of the bound; "
+          f"{n / sig_ms * 1e3:.1f} sequences/s, {hashes / sig_ms * 1e3:.4e}"
+          " hashes/s")
+    print(f"  agreement alone (CUDA events): {agree_ms:.3f} ms; bound "
+          f"{a_bound:.3f} ms by {a_by} (operations {a_ops_ms:.3f} ms, bytes "
+          f"{a_bytes_ms:.4f} ms) = {a_bound / agree_ms:.4f} of the bound; "
+          f"the [block, N, H] booleans it writes and reads back, {moved:.4e} "
+          f"bytes, take {moved / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM "
+          f"rate = {moved / HBM_BYTES_PER_S * 1e3 / agree_ms:.4f} of its "
+          f"time; {n * n / agree_ms * 1e3:.4e} pairs/s")
+    return {"signatures": (sig_ms, sig_bound), "agreement": (agree_ms, a_bound)}
+
+
+def phase_topk(dev, allunique):
+    """[12] The top-k graph: tie order, and allunique at full size."""
+    from dynaalign_torch import oracle
+    from dynaalign_torch.encode import encode
+    from dynaalign_torch.ops import minhash
+    from dynaalign_torch.ops.topk_graph import minhash_topk
+
+    print("[12] top-k graph")
+    tsigs = np.random.default_rng(7).integers(0, 3, size=(96, 8)).astype(
+        np.uint32)
+    want_c, want_i = _stable_topk(tsigs, np.arange(96), 7)
+    for where in (None, "cpu"):
+        vals, idx = minhash_topk(tsigs, k=7, block=32, device=where)
+        if not np.array_equal(idx, want_i) or not np.array_equal(
+                vals, np.maximum(want_c, 0) / 8.0):
+            raise AssertionError(f"tie canary failed on {where or 'the card'}")
+    print("  tie canary (96 x 8 signatures over {0, 1, 2}, k=7, block=32): "
+          "equal to a stable host sort, on the card and on the CPU")
+
+    n, k, n_hash, top_k = len(allunique), 4, 50, 64
+    enc = encode(allunique, validate=False)
+    sig_walls, sigs = _best_of(lambda: minhash.minhash_signatures(
+        enc.ascii, enc.lengths, k=k, n_hash=n_hash))
+    sigs_np = minhash.signatures_to_numpy(sigs)
+    if not np.array_equal(sigs_np[:2000], oracle.minhash_signatures(
+            allunique[:2000], k, n_hash, 0)):
+        raise AssertionError("allunique signatures != oracle on [:2000]")
+    torch.cuda.reset_peak_memory_stats()
+    walls, (vals, idx) = _best_of(lambda: minhash_topk(sigs, k=top_k),
+                                  repeat=2)
+    peak = torch.cuda.max_memory_allocated()
+    if vals.shape != (n, top_k) or idx.dtype != np.int32 or (
+            idx == np.arange(n)[:, None]).any():
+        raise AssertionError("minhash_topk on allunique: bad lists")
+    rows = np.r_[0:256, n - 256 : n]
+    want_c, want_i = _stable_topk(sigs_np, rows, top_k)
+    if not np.array_equal(idx[rows], want_i) or not np.array_equal(
+            vals[rows], want_c / float(n_hash)):
+        raise AssertionError("minhash_topk != stable host sort on allunique")
+    best = min(walls)
+    bound, by, ops_ms, bytes_ms = _pair_ops_bound(n, n, n_hash, 12 * n * top_k)
+    print(f"  allunique, {n} 12-mers, k={k} n_hash={n_hash}: signatures wall "
+          f"s {sig_walls} (best {n / min(sig_walls):.1f} sequences/s), equal "
+          f"to the oracle on [:2000]; minhash_topk top_k={top_k} wall s "
+          f"{walls}; best {best:.4f} s = {n * n / best:.4e} pairs/s; bound "
+          f"{bound:.3f} ms by {by} (operations {ops_ms:.3f} ms, bytes "
+          f"{bytes_ms:.4f} ms) = {bound / best / 1e3:.4f} of the bound; peak "
+          f"device memory {peak} bytes; rows [:256] and [-256:] equal to a "
+          "stable host sort of host-computed counts")
+    return {"top-k": (best * 1e3, bound)}
+
+
+def _check_hybrid(out, mh, nw, quantile=0.8, threshold=None):
+    """A dense hybrid matrix holds ``nw`` where the MH similarity reaches
+    its threshold, 0 elsewhere and a unit diagonal; returns (threshold,
+    kept pairs)."""
+    n = len(mh)
+    iu = np.triu_indices(n, k=1)
+    t = np.quantile(mh[iu], quantile) if threshold is None else threshold
+    want = np.where(mh >= t, nw, 0.0)
+    np.fill_diagonal(want, 1.0)
+    if not np.array_equal(out, want):
+        raise AssertionError("similarity_hybrid != NW on the kept pairs, 0 "
+                             "elsewhere")
+    return float(t), int((mh[iu] >= t).sum())
+
+
+def phase_hybrid(h3n2, sims, long, lsims, herv):
+    """[13] The hybrid pipelines on both NW kernels, and herv at full
+    size."""
+    from dynaalign_torch import (
+        oracle, similarity_hybrid, similarity_hybrid_sparse, similarity_mh,
+    )
+    from dynaalign_torch.models import pipeline
+    from dynaalign_torch.ops import nw_cuda
+
+    print("[13] hybrid: MinHash prefilter, exact NW rescoring")
+    n = len(h3n2)
+    mh = similarity_mh(h3n2)
+    if not np.array_equal(mh, oracle.minhash_similarity(h3n2, 4, 50, 0)):
+        raise AssertionError("similarity_mh != oracle on h3n2sample[:1000]")
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    walls, dense = _best_of(lambda: similarity_hybrid(h3n2), repeat=2)
+    launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    if launches[0] == 0 or launches[1]:
+        raise AssertionError(f"hybrid launches {launches}: not nw_gotoh alone")
+    t, kept = _check_hybrid(dense, mh, sims)
+    print(f"  similarity_hybrid, h3n2sample[:1000]: threshold {t} keeps "
+          f"{kept} of {n * (n - 1) // 2} pairs; LAUNCHES rose by "
+          f"{launches[0] // 2} a call, LAUNCHES_XL by 0; kept entries equal "
+          f"to similarity_nw's, the rest 0, diagonal 1; wall s {walls}")
+    if t <= 0:
+        raise AssertionError("the sparse path drops pairs at MH 0: needs a "
+                             "positive threshold to compare")
+    dense_t = similarity_hybrid(h3n2, prefilter_threshold=t)
+    _check_hybrid(dense_t, mh, sims, threshold=t)
+    timings = {}
+    sp = similarity_hybrid_sparse(h3n2, top_k=n - 1, prefilter_threshold=t,
+                                  timings=timings)
+    if not np.array_equal(sp.toarray(), dense_t):
+        raise AssertionError("similarity_hybrid_sparse != dense at top_k=N-1")
+    print(f"  similarity_hybrid_sparse, top_k={n - 1}, prefilter_threshold="
+          f"{t}: equal to the dense result elementwise; timings {timings}")
+
+    nl = len(long)
+    lmh = similarity_mh(long)
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    ldense = similarity_hybrid(long)
+    launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    if launches[1] == 0 or launches[0]:
+        raise AssertionError(f"hybrid launches {launches} on the long set: "
+                             "not nw_gotoh_xl alone")
+    t, kept = _check_hybrid(ldense, lmh, lsims)
+    print(f"  similarity_hybrid, long set: threshold {t} keeps {kept} of "
+          f"{nl * (nl - 1) // 2} pairs; LAUNCHES_XL rose by {launches[1]}, "
+          "LAUNCHES by 0; kept entries equal to similarity_nw's")
+
+    # the viral-panel configuration at full size
+    nh = len(herv)
+    walls, hdense = _best_of(lambda: similarity_hybrid(herv), repeat=2)
+    hpairs = (np.count_nonzero(hdense) - nh) // 2
+    if not (hdense == hdense.T).all() or not (np.diag(hdense) == 1.0).all():
+        raise AssertionError("herv hybrid: not symmetric with unit diagonal")
+    hmh = similarity_mh(herv)
+    iu = np.triu_indices(nh, k=1)
+    t = np.quantile(hmh[iu], 0.8)
+    keep = np.nonzero(hmh[iu] >= t)[0]
+    for p in np.random.default_rng(13).choice(keep, size=256, replace=False):
+        i, j = iu[0][p], iu[1][p]
+        if hdense[i, j] != oracle.nw_pair(herv[i], herv[j]):
+            raise AssertionError(f"herv hybrid != oracle on pair ({i}, {j})")
+    if np.count_nonzero(hdense[iu][hmh[iu] < t]):
+        raise AssertionError("herv hybrid: an entry under the threshold")
+    del hmh
+    stages, _ = stage_times({
+        (pipeline, "similarity_mh"): "MH",
+        (pipeline, "_select_pairs"): "quantile and pair selection",
+        (pipeline, "nw_rescore_pairs"): "rescore",
+        (pipeline, "_fill_pairs"): "fill",
+    }, lambda: similarity_hybrid(herv).shape)
+    print(f"  similarity_hybrid, all {nh} herv 12-mers: threshold {t} keeps "
+          f"{len(keep)} of {len(iu[0])} pairs ({hpairs} of them score above "
+          f"0); a 256-pair sample equal to the oracle; wall s {walls}; step "
+          "by step, s, " + _stage_text(stages))
+
+
+def phase_clustering(evp_all, allunique):
+    """[14] clusterbreak, the large-set paths and the Louvain passes."""
+    import importlib
+
+    from dynaalign_torch import (
+        cluster_large, cluster_large_exact, clusterbreak,
+    )
+
+    louvain_mod = importlib.import_module("dynaalign_torch.cluster.louvain")
+
+    print("[14] clustering")
+    t0 = time.perf_counter()
+    got = clusterbreak(evp_all, verbose=False)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = clusterbreak(evp_all, verbose=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(got.clustered_seq, ref.clustered_seq) or (
+        got.filtered_seq != ref.filtered_seq or got.n_calls != ref.n_calls
+    ) or not got.converged:
+        raise AssertionError("clusterbreak: card != cpu on evp_peparray")
+    print(f"  clusterbreak, all {len(evp_all)} evp_peparray 12-mers, default "
+          f"engine: {got.n_calls} calls, {len(got.clustered_seq)} clustered, "
+          f"{len(got.filtered_seq)} filtered; card {card_s:.3f} s, "
+          f"device='cpu' {cpu_s:.3f} s; equal")
+
+    n = len(allunique)
+    for fn in (cluster_large, cluster_large_exact):
+        timings = {}
+        t0 = time.perf_counter()
+        mem = fn(allunique, timings=timings)
+        wall = time.perf_counter() - t0
+        if mem.shape != (n,) or mem.min() != 1:
+            raise AssertionError(f"{fn.__name__}: bad membership")
+        print(f"  {fn.__name__}, all {n} allunique 12-mers: "
+              f"{len(np.unique(mem))} clusters, wall {wall:.3f} s "
+              f"({n / wall:.1f} sequences/s), timings {timings}")
+
+    small = allunique[:4096]
+    real = louvain_mod._greedy_pass
+    native = [fn(small) for fn in (cluster_large, cluster_large_exact)]
+    try:
+        louvain_mod._greedy_pass = louvain_mod._numpy_pass
+        plain = [fn(small) for fn in (cluster_large, cluster_large_exact)]
+    finally:
+        louvain_mod._greedy_pass = real
+    if not all(np.array_equal(a, b) for a, b in zip(native, plain)):
+        raise AssertionError("Louvain: native pass != numpy pass")
+    print("  allunique[:4096], cluster_large and cluster_large_exact: "
+          "membership equal between Louvain's native pass and its numpy "
+          "pass")
 
 
 def main() -> int:
@@ -388,6 +771,13 @@ def main() -> int:
         for line in b.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    from dynaalign_torch.cluster import _native as louvain_native
+
+    t0 = time.perf_counter()
+    oracle._lib()
+    louvain_native._lib()
+    print(f"  built the C++ oracle and the Louvain pass (g++) in "
+          f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     g_main, r_main = nw_cuda.INSTANCES[-1]
     for name, fn, rows in (
@@ -528,44 +918,42 @@ def main() -> int:
           f"({cells:.4e} cells)")
 
     # the main path's chunks, rebuilt as api.similarity_nw builds them; each
-    # through the kernel and the plain version, held equal to each other and
-    # to the main path's result for those pairs
+    # through the kernel, held equal to the main path's result for those
+    # pairs; the first one through the plain version as well
     enc = encode(h3n2)
     idx = torch.from_numpy(enc.indices).to(dev)
     ln = torch.from_numpy(enc.lengths).to(dev)
     iu = torch.triu_indices(n, n, device=dev)
     iu_np = np.triu_indices(n)
     sub = blosum.get_matrix(device=dev)
-    chunk_ms, plain_chunk_ms = [], []
+    chunk_ms = []
     for s in range(0, pairs, api.DEFAULT_CHUNK):
         e = min(s + api.DEFAULT_CHUNK, pairs)
         args = _pair_batch(idx, ln, *iu[:, s:e])
         k_ms, got = _event_ms(
             lambda: nw_cuda.nw_similarity_batch_cuda(*args, sub))
-        p_ms, ref = _event_ms(lambda: nw_similarity_batch(*args, sub))
         chunk_ms.append(k_ms)
-        plain_chunk_ms.append(p_ms)
-        if s == 0:
-            first_ref = ref
-        worst = max(worst, _max_err(got, ref))
-        if not _equal(got, ref):
-            raise AssertionError(f"kernel != plain on main-path pairs {s}:{e}")
         if not np.array_equal(sims[iu_np[0][s:e], iu_np[1][s:e]],
-                              ref.similarity()):
-            raise AssertionError(f"similarity_nw != plain on pairs {s}:{e}")
+                              got.similarity()):
+            raise AssertionError(f"similarity_nw != kernel on pairs {s}:{e}")
+        text = f"kernel {k_ms:.3f} ms; kernel == similarity_nw"
+        if s == 0:
+            plain_ms, first_ref = _event_ms(
+                lambda: nw_similarity_batch(*args, sub))
+            worst = max(worst, _max_err(got, first_ref))
+            if not _equal(got, first_ref):
+                raise AssertionError("kernel != plain on the first chunk")
+            text = (f"kernel {k_ms:.3f} ms, plain {plain_ms:.3f} ms; kernel "
+                    "== plain == similarity_nw")
         print(f"  main-path chunk {s}:{e} (B={e - s}, M=N={args[0].shape[1]}):"
-              f" kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; kernel == plain"
-              " == similarity_nw")
+              f" {text}")
     print(f"  kernel time of each main-path chunk, ms: {chunk_ms}; sum "
           f"{sum(chunk_ms):.3f} ms = {sum(chunk_ms) / 1e3 / best:.4f} of the "
           f"best wall time; wall - sum = {best - sum(chunk_ms) / 1e3:.4f} s "
           "(host work, gathers, copies)")
-    stages = host_stages(h3n2)
-    total = sum(stages.values())
-    print(f"  similarity_nw n=1000 step by step, s (its own functions timed "
-          f"in place, a synchronise after each; wall {total:.4f}): "
-          + ", ".join(f"{k} {v:.4f} ({v / total:.3f})"
-                      for k, v in stages.items()))
+    print("  similarity_nw n=1000 step by step, s (its own functions timed "
+          "in place, a synchronise after each), "
+          + _stage_text(host_stages(h3n2)))
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     for c in (1 << 16, 1 << 18, pairs):
         t0 = time.perf_counter()
@@ -591,7 +979,6 @@ def main() -> int:
           f"bound ({old_ms / kernel_ms:.4f} of the older bound of "
           f"{OLD_OPS_PER_CELL} ops per cell at the ALU rate, {old_ms:.3f} "
           f"ms); {chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
-    plain_ms = plain_chunk_ms[0]
     print(f"  plain version (correctness twin, not a yardstick), same chunk:"
           f" {plain_ms:.3f} ms")
     # the one-warp-per-pair kernel on the same chunk, for comparison only:
@@ -652,29 +1039,46 @@ def main() -> int:
     liu = torch.triu_indices(nl, nl, device=dev)
     largs = _pair_batch(lidx, lln, *liu)
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
-    xl_ms, _ = _event_ms(
+    xl_all_ms, lgot = _event_ms(
         lambda: nw_cuda.nw_similarity_batch_cuda_xl(*largs, sub), repeat=3)
-    xl_plain_ms, lref = _event_ms(lambda: nw_similarity_batch(*largs, sub))
-    lgot = nw_cuda.nw_similarity_batch_cuda_xl(*largs, sub)
-    worst_xl = max(worst_xl, _max_err(lgot, lref))
     liu_np = np.triu_indices(nl)
-    if not _equal(lgot, lref) or not np.array_equal(
-        lsims[liu_np], lref.similarity()
+    if not np.array_equal(lsims[liu_np], lgot.similarity()):
+        raise AssertionError("long set: kernel and similarity_nw differ")
+    lb, lm = largs[0].shape
+
+    def xl_bound(batch):
+        n_cells = float((batch[1].double() * batch[3].double()).sum())
+        b = batch[0].shape[0]
+        nbytes = 4 * (2 * b * lm + 2 * b + 32 * 32 + 2 * b)
+        return n_cells, nbytes, *_bound(n_cells, nbytes)
+
+    _, lbytes, all_bound_ms, all_bound_by, all_old_ms = xl_bound(largs)
+    print(f"  nw_gotoh_xl, all {lb} pairs in one launch (M=N={lm}): "
+          f"{xl_all_ms:.3f} ms; bound {all_bound_ms:.3f} ms by "
+          f"{all_bound_by} ({lbytes} bytes) = {all_bound_ms / xl_all_ms:.4f} "
+          f"of the bound ({all_old_ms / xl_all_ms:.4f} of the older bound, "
+          f"{all_old_ms:.3f} ms); {lcells / xl_all_ms * 1e3:.4e} cell "
+          f"updates/s; kernel / best wall = {xl_all_ms / 1e3 / lbest:.4f}; "
+          "kernel == similarity_nw on every pair")
+    # the plain version walks every fourth pair only (all of them took it
+    # 42 s); the kernel is timed on the same pairs beside it
+    qargs = _pair_batch(lidx, lln, *liu[:, ::4])
+    xl_quarter_ms, qgot = _event_ms(
+        lambda: nw_cuda.nw_similarity_batch_cuda_xl(*qargs, sub), repeat=3)
+    xl_plain_ms, qref = _event_ms(lambda: nw_similarity_batch(*qargs, sub))
+    worst_xl = max(worst_xl, _max_err(qgot, qref))
+    if not _equal(qgot, qref) or not np.array_equal(
+        lsims[liu_np[0][::4], liu_np[1][::4]], qref.similarity()
     ):
         raise AssertionError("long set: kernel, plain and similarity_nw "
-                             "differ")
-    lb, lm = largs[0].shape
-    lbytes = 4 * (2 * lb * lm + 2 * lb + 32 * 32 + 2 * lb)
-    xl_bound_ms, xl_bound_by, xl_old_ms = _bound(lcells, lbytes)
-    print(f"  nw_gotoh_xl, all {lb} pairs in one launch (M=N={lm}): "
-          f"{xl_ms:.3f} ms; bound {xl_bound_ms:.3f} ms by {xl_bound_by} "
-          f"({lbytes} bytes) = {xl_bound_ms / xl_ms:.4f} of the bound "
-          f"({xl_old_ms / xl_ms:.4f} of the older bound, {xl_old_ms:.3f} "
-          "ms); "
-          f"{lcells / xl_ms * 1e3:.4e} cell updates/s; kernel / best wall = "
-          f"{xl_ms / 1e3 / lbest:.4f}")
-    print(f"  plain version on the card, same pairs: {xl_plain_ms:.3f} ms; "
-          "kernel == plain == similarity_nw on every pair")
+                             "differ on every fourth pair")
+    qcells, _, q_bound_ms, q_bound_by, _ = xl_bound(qargs)
+    print(f"  every fourth pair ({qargs[0].shape[0]} pairs, {qcells:.4e} "
+          f"cells): nw_gotoh_xl {xl_quarter_ms:.3f} ms; bound "
+          f"{q_bound_ms:.3f} ms by {q_bound_by} = "
+          f"{q_bound_ms / xl_quarter_ms:.4f} of the bound; plain "
+          f"version on the card {xl_plain_ms:.3f} ms; kernel == plain == "
+          "similarity_nw")
     print(f"  serial C++ oracle, long set [:16, :16] (136 pairs): "
           f"{lor_s:.4f} s = {lor_rate:.4f} pairs/s; similarity_nw / oracle "
           f"= {lpairs / lbest / lor_rate:.2f}x (pairs/s; the block's pairs "
@@ -765,6 +1169,19 @@ def main() -> int:
           f"ALU rate), {smem_ms:.3f} ms by shared memory on its 8 SMs; "
           f"plain version on the card {probe_plain_ms:.3f} ms")
 
+    h3n2_all = load_sequences("h3n2sample")
+    allunique = load_sequences("allunique")
+    print(f"nvidia-smi name, power.limit: {_smi()}")
+    print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
+    torch_stages = phase_minhash(dev, evp_all, h3n2_all)
+    torch_stages.update(phase_topk(dev, allunique))
+    print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
+    phase_hybrid(h3n2, sims, long, lsims, load_sequences("herv"))
+    phase_clustering(evp_all, allunique)
+    print("torch stages (no hand-written kernel), ms / bound ms / share: "
+          + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
+                      for k, (ms, b) in torch_stages.items()))
+
     print(f"nvidia-smi name, power.limit: {_smi()}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -775,6 +1192,7 @@ def main() -> int:
         "launches": launches,
         "equal_to_plain": True,
         "max_abs_err": worst,
+        "timed_on": "the first chunk of h3n2sample n=1000",
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -788,10 +1206,13 @@ def main() -> int:
         "launches": launches_xl,
         "equal_to_plain": True,
         "max_abs_err": worst_xl,
-        "ms": xl_ms,
+        "timed_on": "the long set's one launch; the plain version and "
+                    "quarter_ms on every fourth pair of it",
+        "ms": xl_all_ms,
+        "quarter_ms": xl_quarter_ms,
         "plain_ms": xl_plain_ms,
-        "bound_ms": xl_bound_ms,
-        "bound_by": xl_bound_by,
+        "bound_ms": all_bound_ms,
+        "bound_by": all_bound_by,
         "library_ms": None,
     }, {
         "name": "probe_shift",

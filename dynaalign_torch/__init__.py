@@ -1,19 +1,47 @@
 """dynaalign_torch — the PyTorch/CUDA port of the JAX package.
 
-Exact Needleman–Wunsch percent identity (Gotoh affine gaps, BLOSUM scoring,
-greedy-traceback match count), all pairs or an explicit pair list, on an
-NVIDIA Hopper card through hand-written CUDA kernels (``csrc/nw_gotoh.cu``,
-one thread per pair, and ``csrc/nw_gotoh_xl.cu``, one warp per pair for
-long sequences, at any length), with a plain PyTorch version of the same
-function for the CPU.  Outputs equal the JAX package's and the C++
-oracle's element for element.
+Peptide and protein similarity and clustering on an NVIDIA Hopper card:
+
+* exact Needleman–Wunsch percent identity (Gotoh affine gaps, BLOSUM
+  scoring, greedy-traceback match count), all pairs or an explicit pair
+  list, through hand-written CUDA kernels (``csrc/nw_gotoh.cu``, a group of
+  lanes per pair with the DP state in registers, and
+  ``csrc/nw_gotoh_xl.cu``, one warp per pair for long sequences, at any
+  length), with a plain PyTorch version of the same function for the CPU;
+* MinHash similarity (seeded murmur3 signatures, all-pairs agreement) and
+  the top-k neighbour graph, as PyTorch tensor code on the card;
+* Louvain, ``netcluster`` and the recursive ``clusterbreak`` on the host;
+* the hybrid pipelines: a MinHash prefilter, dense or top-k, whose
+  surviving pairs are rescored exactly by the NW kernels.
+
+Outputs equal the JAX package's and the C++ oracle's element for element.
+Every entry point takes ``device=None``, which means the card and raises
+without one; ``device="cpu"`` runs on the host.
 
 This package imports neither JAX nor the JAX package.
 """
 
-from .api import similarity_nw, similarity_nw_bucketed  # noqa: F401
+from .api import (  # noqa: F401
+    MinHashEngine,
+    similarity_mh,
+    similarity_nw,
+    similarity_nw_bucketed,
+)
 from .blosum import MATRIX_NAMES, get_matrix  # noqa: F401
+from .cluster import (  # noqa: F401
+    ClusterBreakResult,
+    clusterbreak,
+    louvain,
+    louvain_mod,
+    netcluster,
+)
 from .encode import encode  # noqa: F401
-from .models import nw_rescore_pairs  # noqa: F401
+from .models import (  # noqa: F401
+    cluster_large_exact,
+    nw_rescore_pairs,
+    similarity_hybrid,
+    similarity_hybrid_sparse,
+)
+from .ops.topk_graph import cluster_large  # noqa: F401
 
 __version__ = "0.1.0"

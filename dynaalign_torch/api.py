@@ -1,14 +1,17 @@
-"""User-facing NW similarity entry points.
+"""User-facing similarity entry points.
 
-``similarity_nw`` mirrors the reference's R-level API and defaults
-(R/RcppExports.R:34-36):
+``similarity_mh`` / ``similarity_nw`` mirror the reference's R-level API
+and defaults (R/RcppExports.R:15-17, 34-36):
 
+    similarityMH(sequences, k = 4, n_hash = 50)
     similarityNW(sequences, matrixName = "BLOSUM62", gapOpen = 10, gapExt = 4)
 
-and returns a dense symmetric [N, N] float64 matrix in [0, 1].  The work
+and return dense symmetric [N, N] float64 matrices in [0, 1].  The work
 runs on ``device`` (default ``"cuda"``); pass ``device="cpu"`` to run the
 plain PyTorch version on the host.  Without a card, the default raises
-instead of falling back.
+instead of falling back.  ``similarity_mh`` also takes an explicit RNG
+``seed`` (the reference's hash family is nondeterministic,
+src/minHash.cpp:73).
 """
 
 from __future__ import annotations
@@ -19,8 +22,17 @@ import numpy as np
 import torch
 
 from . import blosum
+from .device import resolve_device as _resolve_device
 from .encode import bucket_by_length, encode
 from .ops import nw_batch, pair_bytes
+from .ops.minhash import (
+    as_signatures,
+    counts_to_similarity,
+    fetch_counts,
+    minhash_signatures,
+    signature_agreement_counts,
+    signature_similarity,
+)
 
 # most pairs per kernel launch
 DEFAULT_CHUNK = 1 << 17
@@ -34,15 +46,166 @@ LAUNCH_BYTES = 8 << 30
 BUCKET_EDGES = (15, 31, 63, 127, 255, 383, 511, 639, 767, 1023, 1535, 2047)
 
 
-def _resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device needs a card present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch version on the host"
+def labels_1n(n: int) -> list[str]:
+    """Reference-style dimnames "1".."n" (src/minHash.cpp:181-186)."""
+    return [str(i + 1) for i in range(n)]
+
+
+def _check_mh_args(sequences, k: int, n_hash: int) -> None:
+    """Validation of src/minHash.cpp:121-131."""
+    if len(sequences) == 0:
+        raise ValueError("Input sequences vector cannot be empty")
+    if k <= 0:
+        raise ValueError("'k' must be a positive integer")
+    if n_hash <= 0:
+        raise ValueError("Number of hash functions must be positive")
+
+
+def similarity_mh(
+    sequences: Sequence[str],
+    k: int = 4,
+    n_hash: int = 50,
+    *,
+    seed: int = 0,
+    device=None,
+    chunk: int | None = None,
+    block: int | None = None,
+) -> np.ndarray:
+    """MinHash Jaccard-estimate similarity matrix (reference similarityMH).
+
+    ``chunk`` (sequences per signature build) and ``block`` (rows per
+    agreement compare) default to what the byte budgets of
+    :mod:`.ops.minhash` allow.
+
+    Unlike the reference the result is reproducible: the murmur seed
+    family is drawn from a seeded mt19937 bit-compatible with a seeded C++
+    HashFamily.
+    """
+    _check_mh_args(sequences, k, n_hash)
+    dev = _resolve_device(device)
+    enc = encode(sequences, validate=False)  # MH hashes raw bytes; any
+    # character is hashable (the reference accepts arbitrary strings too)
+    sigs = minhash_signatures(
+        enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
+        device=dev,
+    )
+    return signature_similarity(sigs, block=block)
+
+
+class MinHashEngine:
+    """Signature-caching MinHash similarity engine for recursive callers.
+
+    ``similarity_mh`` rebuilds per-sequence signatures on every call, so
+    a recursive caller like :func:`dynaalign_torch.cluster.clusterbreak`
+    would pay the signature build once per recursion subset.  A
+    sequence's signature depends only on (sequence, k, n_hash, seed), not
+    on which batch it is computed in (src/minHash.cpp:143-157 is
+    per-sequence), so this engine builds signatures once for the full set
+    and serves any subset's similarity matrix from the cached rows.
+    Equal to ``similarity_mh`` on the same subset.
+
+    Duplicate sequences share one signature row (same string, same
+    signature, exactly as recomputation would give).  Calling it with a
+    sequence outside the constructor set raises KeyError.  Every call
+    returns a fresh array, which the caller may overwrite (``clusterbreak``
+    zeroes the entries under its threshold in place).
+
+    Usage: ``clusterbreak(pep, sim_fn=MinHashEngine(pep, k=2))``, or leave
+    ``sim_fn=None``: clusterbreak builds one itself.
+    """
+
+    def __init__(
+        self,
+        sequences: Sequence[str],
+        k: int = 4,
+        n_hash: int = 50,
+        *,
+        seed: int = 0,
+        device=None,
+        chunk: int | None = None,
+        block: int | None = None,
+        cache_counts: bool | None = None,
+    ):
+        _check_mh_args(sequences, k, n_hash)
+        dev = _resolve_device(device)
+        enc = encode(sequences, validate=False)
+        sigs = minhash_signatures(
+            enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed,
+            chunk=chunk, device=dev,
         )
-    return dev
+        self._setup(sequences, sigs, k, n_hash, seed, block, cache_counts)
+
+    @classmethod
+    def from_signatures(
+        cls,
+        sequences: Sequence[str],
+        sigs: np.ndarray,
+        *,
+        k: int,
+        n_hash: int,
+        seed: int,
+        device=None,
+        block: int | None = None,
+        cache_counts: bool | None = None,
+    ) -> "MinHashEngine":
+        """An engine over signatures computed elsewhere: ``sigs`` is the
+        uint32 [N, n_hash] array of ``sequences`` under (k, n_hash, seed),
+        row i for ``sequences[i]``."""
+        _check_mh_args(sequences, k, n_hash)
+        sigs = np.asarray(sigs)
+        if sigs.shape != (len(sequences), n_hash):
+            raise ValueError(
+                f"signatures of shape {sigs.shape} for {len(sequences)} "
+                f"sequences and n_hash={n_hash}"
+            )
+        self = cls.__new__(cls)
+        self._setup(sequences, as_signatures(sigs, _resolve_device(device)),
+                    k, n_hash, seed, block, cache_counts)
+        return self
+
+    def _setup(self, sequences, sigs, k, n_hash, seed, block, cache_counts):
+        self._sigs = sigs  # int32 [N, H] bit patterns, on the device
+        self._index: dict[str, int] = {}
+        for i, s in enumerate(sequences):
+            self._index.setdefault(str(s), i)
+        self.k = k
+        self.n_hash = n_hash
+        self.seed = seed
+        self._block = block
+        # full-matrix count cache: clusterbreak's recursion subsets are
+        # all subsets of one set, so every subset similarity is a slice of
+        # the full [N, N] agreement counts, computed on the device once.
+        # Auto-on up to 16,384 rows (1 GiB of int32 on the host).
+        if cache_counts is None:
+            cache_counts = len(sigs) <= 16384
+        self._cache_counts = cache_counts
+        self._counts: np.ndarray | None = None
+
+    def _full_counts(self) -> np.ndarray:
+        if self._counts is None:
+            self._counts = fetch_counts(signature_agreement_counts(
+                self._sigs, block=self._block
+            ))
+        return self._counts
+
+    def __call__(self, subset: Sequence[str]) -> np.ndarray:
+        if len(subset) == 0:
+            raise ValueError("Input sequences vector cannot be empty")
+        try:
+            rows = np.array(
+                [self._index[str(s)] for s in subset], dtype=np.int64
+            )
+        except KeyError as e:
+            raise KeyError(
+                f"sequence {e.args[0]!r} not in this MinHashEngine's "
+                "signature set"
+            ) from None
+        if self._cache_counts:
+            return counts_to_similarity(
+                self._full_counts()[np.ix_(rows, rows)], self.n_hash
+            )
+        picked = self._sigs[torch.from_numpy(rows).to(self._sigs.device)]
+        return signature_similarity(picked, block=self._block)
 
 
 def _ratio(matches: np.ndarray, length: np.ndarray) -> np.ndarray:

@@ -1,22 +1,39 @@
-"""Pipeline steps built on the similarity entry points.
+"""The hybrid pipelines: a MinHash prefilter, then exact NW rescoring.
 
-This slice ports the exact rescoring step of the hybrid pipelines,
-:func:`nw_rescore_pairs` (the JAX package's ``models/pipeline.py``): its
-result, not its TPU batching.  The pairs stream through the same launches
-as ``similarity_nw``, so each batch goes to the kernel its padded width
-needs, at any length.
+Cheap signatures prune the pair space, and only the pairs at or above the
+MH threshold go through the exact DP (the viral-panel hybrid
+configuration):
+
+* :func:`nw_rescore_pairs`: exact NW percent identity of an explicit pair
+  list, streamed through the same launches as ``similarity_nw``, so each
+  batch goes to the kernel its padded width needs, at any length;
+* :func:`similarity_hybrid`: dense, the threshold taken over all pairs;
+* :func:`hybrid_topk_edges`, :func:`similarity_hybrid_sparse`,
+  :func:`cluster_large_exact`: sparse, over the top-k graph, with no dense
+  matrix anywhere.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
 import torch
+from scipy import sparse
 
 from .. import blosum
-from ..api import DEFAULT_CHUNK, _pairs_nw, _ratio, _resolve_device
+from ..api import (
+    DEFAULT_CHUNK,
+    _pairs_nw,
+    _ratio,
+    _resolve_device,
+    similarity_mh,
+)
+from ..cluster.louvain import louvain
 from ..encode import encode
+from ..ops.minhash import minhash_signatures
+from ..ops.topk_graph import minhash_topk
 
 
 def nw_rescore_pairs(
@@ -54,3 +71,233 @@ def nw_rescore_pairs(
                        torch.from_numpy(pj).to(dev), sub, gap_open, gap_ext,
                        chunk or DEFAULT_CHUNK)
     return _ratio(mt, ln)
+
+
+def _select_pairs(mh: np.ndarray, quantile: float, threshold: float | None):
+    """(pair_i, pair_j) of the strict upper triangle, row-major, whose MH
+    similarity reaches the threshold: ``threshold`` verbatim when given,
+    else the ``quantile`` of all off-diagonal values."""
+    iu = np.triu_indices(mh.shape[0], k=1)
+    vals = mh[iu]
+    if threshold is not None:
+        t = threshold
+    else:
+        t = np.quantile(vals, quantile) if vals.size else 0.0
+    keep = vals >= t
+    return iu[0][keep], iu[1][keep]
+
+
+def _fill_pairs(n: int, pi, pj, sims) -> np.ndarray:
+    """Symmetric [n, n] matrix with ``sims`` on the pairs, 0 elsewhere and
+    a unit diagonal."""
+    out = np.zeros((n, n), dtype=np.float64)
+    out[pi, pj] = sims
+    out[pj, pi] = sims
+    np.fill_diagonal(out, 1.0)
+    return out
+
+
+def similarity_hybrid(
+    sequences: Sequence[str],
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    prefilter_quantile: float = 0.8,
+    prefilter_threshold: float | None = None,
+    matrix_name: str = "BLOSUM62",
+    gap_open: int = 10,
+    gap_ext: int = 4,
+    device=None,
+) -> np.ndarray:
+    """MH prefilter + exact NW rescoring of the surviving pairs.
+
+    Pairs below the MH threshold keep similarity 0; the rest are
+    replaced with exact NW percent identity.  Diagonal is 1.0.  The
+    threshold is the ``prefilter_quantile`` of all off-diagonal MH
+    values, or ``prefilter_threshold`` verbatim when given (the knob
+    the sparse path shares, see :func:`similarity_hybrid_sparse`).
+    """
+    sequences = list(sequences)
+    n = len(sequences)
+    dev = _resolve_device(device)
+    mh = similarity_mh(sequences, k=k, n_hash=n_hash, seed=seed, device=dev)
+    pi, pj = _select_pairs(mh, prefilter_quantile, prefilter_threshold)
+    if not len(pi):
+        return np.eye(n, dtype=np.float64)
+    sims = nw_rescore_pairs(
+        sequences, pi, pj, matrix_name=matrix_name, gap_open=gap_open,
+        gap_ext=gap_ext, device=dev,
+    )
+    return _fill_pairs(n, pi, pj, sims)
+
+
+def hybrid_topk_edges(
+    sequences: Sequence[str],
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    top_k: int = 64,
+    prefilter_quantile: float = 0.8,
+    prefilter_threshold: float | None = None,
+    chunk: int | None = None,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """MH top-k prefilter edge list for the sparse hybrid path.
+
+    Builds seeded MinHash signatures, reduces each row to its ``top_k``
+    strongest neighbours on the device (ops.topk_graph.minhash_topk, never
+    materialising the dense [N, N] matrix), dedups to unique i < j
+    edges, and keeps edges at or above the MH threshold.  The threshold is
+    ``prefilter_threshold`` verbatim when given; otherwise the
+    ``prefilter_quantile`` of the observed positive edge weights (with
+    top_k < N-1 this population is biased toward strong edges relative
+    to the dense path's all-pairs quantile, the inherent price of
+    never scoring the sub-top-k mass; pass an absolute threshold for
+    exact dense-path agreement).
+
+    Returns (pair_i, pair_j, mh_weight) with pair_i < pair_j, sorted by
+    pair_i * N + pair_j.
+    """
+    seqs = list(sequences)
+    n = len(seqs)
+    dev = _resolve_device(device)
+    enc = encode(seqs)
+    sigs = minhash_signatures(
+        enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
+        device=dev,
+    )
+    vals, idx = minhash_topk(sigs, k=top_k)
+    kk = vals.shape[1]
+    rows = np.repeat(np.arange(n, dtype=np.int64), kk)
+    cols = idx.ravel().astype(np.int64)
+    w = vals.ravel()
+    keep = (w > 0) & (rows != cols)
+    rows, cols, w = rows[keep], cols[keep], w[keep]
+    lo = np.minimum(rows, cols)
+    hi = np.maximum(rows, cols)
+    key = lo * n + hi
+    # both directions of an edge carry the same count; keep the first
+    _, first = np.unique(key, return_index=True)
+    lo, hi, w = lo[first], hi[first], w[first]
+    if prefilter_threshold is not None:
+        t = prefilter_threshold
+    else:
+        t = float(np.quantile(w, prefilter_quantile)) if w.size else 0.0
+    sel = w >= t
+    return (
+        lo[sel].astype(np.int32),
+        hi[sel].astype(np.int32),
+        w[sel],
+    )
+
+
+def similarity_hybrid_sparse(
+    sequences: Sequence[str],
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    top_k: int = 64,
+    prefilter_quantile: float = 0.8,
+    prefilter_threshold: float | None = None,
+    matrix_name: str = "BLOSUM62",
+    gap_open: int = 10,
+    gap_ext: int = 4,
+    chunk: int | None = None,
+    device=None,
+    timings: dict | None = None,
+) -> sparse.csr_matrix:
+    """Sparse hybrid similarity: MH top-k prefilter + exact NW edge
+    rescoring, without ever materialising a dense [N, N] matrix.
+
+    The dense :func:`similarity_hybrid` quantiles the full upper triangle,
+    about 80 GB of float64 at N = 100k.  This path composes the device-side
+    top-k graph with ``nw_rescore_pairs``, so the exact-NW flow reaches
+    sets the dense one cannot.  With ``top_k >= N-1`` and an absolute
+    ``prefilter_threshold``, the result equals the dense path exactly.
+
+    Returns a scipy.sparse CSR [N, N] with exact NW percent identity on
+    the kept edges (symmetric) and a unit diagonal.
+
+    Pass a dict as ``timings`` for per-stage seconds (keys: ``edges``
+    = signatures + top-k + threshold, ``rescore``; plus ``n_edges``).
+    """
+    seqs = list(sequences)
+    n = len(seqs)
+    dev = _resolve_device(device)
+    t0 = time.perf_counter()
+    pi, pj, _ = hybrid_topk_edges(
+        seqs, k=k, n_hash=n_hash, seed=seed, top_k=top_k,
+        prefilter_quantile=prefilter_quantile,
+        prefilter_threshold=prefilter_threshold, chunk=chunk, device=dev,
+    )
+    t1 = time.perf_counter()
+    if len(pi):
+        sims = nw_rescore_pairs(
+            seqs, pi, pj, matrix_name=matrix_name, gap_open=gap_open,
+            gap_ext=gap_ext, device=dev,
+        )
+    else:
+        sims = np.zeros(0, dtype=np.float64)
+    t2 = time.perf_counter()
+    if timings is not None:
+        timings.update(
+            edges=t1 - t0, rescore=t2 - t1, n_edges=int(len(pi))
+        )
+    return sparse.coo_matrix(
+        (
+            np.concatenate([sims, sims, np.ones(n)]),
+            (
+                np.concatenate([pi, pj, np.arange(n)]),
+                np.concatenate([pj, pi, np.arange(n)]),
+            ),
+        ),
+        shape=(n, n),
+    ).tocsr()
+
+
+def cluster_large_exact(
+    sequences,
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    top_k: int = 64,
+    thresh_p: float = 0.8,
+    prefilter_threshold: float | None = None,
+    matrix_name: str = "BLOSUM62",
+    gap_open: int = 10,
+    gap_ext: int = 4,
+    resolution: float = 1.05,
+    louvain_seed: int = 0,
+    chunk: int | None = None,
+    device=None,
+    timings: dict | None = None,
+) -> np.ndarray:
+    """Large-N clustering on exact NW edge weights: MH top-k prefilter →
+    NW rescoring of the surviving edges → Louvain.
+
+    The exact-rescored sibling of ops.topk_graph.cluster_large: same
+    sparse scaling (no dense matrix anywhere), but the graph Louvain
+    sees carries exact percent-identity weights instead of Jaccard
+    estimates.  Returns a 1-based membership vector.
+
+    Pass a dict as ``timings`` for per-stage seconds (``edges``,
+    ``rescore``, ``louvain``; plus ``n_edges``).
+    """
+    adj = similarity_hybrid_sparse(
+        sequences, k=k, n_hash=n_hash, seed=seed, top_k=top_k,
+        prefilter_quantile=thresh_p,
+        prefilter_threshold=prefilter_threshold,
+        matrix_name=matrix_name, gap_open=gap_open, gap_ext=gap_ext,
+        chunk=chunk, device=device, timings=timings,
+    )
+    t0 = time.perf_counter()
+    membership = louvain(
+        adj, resolution=resolution, seed=louvain_seed
+    ).membership + 1
+    if timings is not None:
+        timings["louvain"] = time.perf_counter() - t0
+    return membership

@@ -1,10 +1,19 @@
-"""Batched NW dispatch: the width picks the kernel, then its wrapper sends
-CUDA tensors to the kernel and CPU tensors to the plain PyTorch version."""
+"""The port's tensor operations: the MinHash stages (plain PyTorch on an
+explicit device) and the batched NW dispatch, where the width picks the
+kernel and its wrapper sends CUDA tensors to the kernel and CPU tensors to
+the plain PyTorch version."""
 
 from __future__ import annotations
 
 import torch
 
+from .minhash import (  # noqa: F401
+    minhash_signatures,
+    signature_agreement_counts,
+    signature_similarity,
+    signatures_to_numpy,
+)
+from .murmur3 import murmur3_kmer_hashes  # noqa: F401
 from .nw import NEG_SENTINEL, NWResult, nw_similarity_batch  # noqa: F401
 from .nw_cuda import (
     MAX_MP1,

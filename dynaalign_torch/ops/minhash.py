@@ -1,0 +1,168 @@
+"""MinHash signatures and signature agreement, as PyTorch tensor code.
+
+Behavioural spec: reference src/minHash.cpp:119-188 (``similarityMH``).
+The reference's two hot loops are two functions here:
+
+* HOT LOOP 1 (signature build, src/minHash.cpp:143-157) is a ``[n, P, H]``
+  hash tensor min-reduced over window positions, chunked over sequences by
+  a byte budget (``HASH_BYTES``).
+* HOT LOOP 2 (pair similarity, src/minHash.cpp:160-178) is a blocked
+  all-pairs agreement count: each row block compares ``[b, 1, H]`` with
+  ``[1, N, H]`` and sums over H.  Eager PyTorch materialises the
+  ``[b, N, H]`` booleans, so the block is sized from a byte budget too
+  (``COMPARE_BYTES``).
+
+Signatures are uint32 values carried as ``torch.int32`` bit patterns
+(see :mod:`.murmur3`); :func:`signatures_to_numpy` gives the uint32 array.
+
+Edge-case parity (preserved deliberately): a sequence shorter than k keeps
+the all-UINT32_MAX init signature and therefore scores similarity 1.0
+against any other too-short sequence.
+
+Reproducibility: unlike the reference (seeded from std::random_device,
+src/minHash.cpp:73), the hash family takes an explicit ``seed`` (default
+0) drawn through an mt19937 bit-compatible with a seeded build of the
+reference (utils/mt19937.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..utils.mt19937 import hash_family_seeds
+from .murmur3 import murmur3_kmer_hashes, seeds_tensor
+
+# most bytes of one chunk's [chunk, P, H] int32 hash tensor; eager PyTorch
+# holds about four temporaries of that size while it hashes
+HASH_BYTES = 1 << 30
+# most bytes of one row block's [block, N, H] boolean compare
+COMPARE_BYTES = 1 << 30
+
+_INT32_MIN = -(1 << 31)
+_INT32_MAX = (1 << 31) - 1
+
+
+def _signatures_chunk(ascii_tokens, lengths, seeds, k: int) -> torch.Tensor:
+    hashes = murmur3_kmer_hashes(ascii_tokens, k, seeds)  # [n, P, H]
+    p = hashes.shape[1]
+    pos = torch.arange(p, dtype=torch.int32, device=hashes.device)[None, :]
+    valid = (pos + k) <= lengths[:, None]  # [n, P]
+    # the min is unsigned: flipping the sign bit maps uint32 order onto
+    # int32 order, and UINT32_MAX (invalid windows) onto INT32_MAX
+    hashes = hashes ^ _INT32_MIN
+    hashes.masked_fill_(~valid[:, :, None], _INT32_MAX)
+    return hashes.amin(dim=1) ^ _INT32_MIN
+
+
+def minhash_signatures(
+    ascii_tokens: np.ndarray | torch.Tensor,
+    lengths: np.ndarray | torch.Tensor,
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    chunk: int | None = None,
+    device=None,
+) -> torch.Tensor:
+    """MinHash signatures int32 [N, H] (uint32 bit patterns) on ``device``
+    for a padded ascii batch.
+
+    Chunked over sequences; ``chunk=None`` (default) takes as many as keep
+    the [chunk, P, H] hash tensor within ``HASH_BYTES``.  The chunks'
+    results are joined on the device.
+    """
+    if k <= 0:
+        raise ValueError("'k' must be a positive integer")
+    if n_hash <= 0:
+        raise ValueError("Number of hash functions must be positive")
+    dev = resolve_device(device)
+    ascii_tokens = torch.as_tensor(ascii_tokens, dtype=torch.uint8).to(dev)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    n, length = ascii_tokens.shape
+    if length < k:
+        # every sequence is shorter than k: all-max signatures
+        return torch.full((n, n_hash), -1, dtype=torch.int32, device=dev)
+    if chunk is None:
+        chunk = max(1, HASH_BYTES // (4 * (length - k + 1) * n_hash))
+    seeds = seeds_tensor(hash_family_seeds(n_hash, seed), dev)
+    return torch.cat([
+        _signatures_chunk(ascii_tokens[s : s + chunk],
+                          lengths[s : s + chunk], seeds, k)
+        for s in range(0, n, chunk)
+    ])
+
+
+def signatures_to_numpy(sigs: torch.Tensor) -> np.ndarray:
+    """Signatures as the uint32 [N, H] host array the oracle produces."""
+    return sigs.cpu().numpy().view(np.uint32)
+
+
+def as_signatures(sigs: np.ndarray | torch.Tensor, device=None):
+    """Signatures as an int32 [N, H] tensor of bit patterns.  A tensor
+    stays on its own device unless ``device`` names one; a host array
+    (uint32) goes to ``device``, by default the card."""
+    if isinstance(sigs, torch.Tensor):
+        if sigs.dtype != torch.int32 or sigs.dim() != 2:
+            raise ValueError("signature tensors are int32 [N, H] bit "
+                             f"patterns, got {sigs.dtype} {tuple(sigs.shape)}")
+        return sigs if device is None else sigs.to(resolve_device(device))
+    bits = np.array(sigs, dtype=np.uint32, order="C")  # a writable copy
+    if bits.ndim != 2:
+        raise ValueError(f"signatures are [N, H], got shape {bits.shape}")
+    return torch.from_numpy(bits.view(np.int32)).to(resolve_device(device))
+
+
+def row_block(n: int, n_hash: int) -> int:
+    """Rows of a block whose [block, n, n_hash] compare fits
+    ``COMPARE_BYTES``."""
+    return max(1, COMPARE_BYTES // max(n * n_hash, 1))
+
+
+def block_counts(sigs: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """int32 [stop - start, N]: agreeing slots of rows start:stop against
+    every row."""
+    eq = sigs[start:stop, None, :] == sigs[None, :, :]  # [b, N, H]
+    return eq.sum(dim=-1, dtype=torch.int32)
+
+
+def signature_agreement_counts(
+    sigs: np.ndarray | torch.Tensor, *, block: int | None = None,
+    device=None,
+) -> torch.Tensor:
+    """int32 [N, N] count of agreeing signature slots per pair, on the
+    device.  ``block=None`` sizes the row block from ``COMPARE_BYTES``."""
+    sigs = as_signatures(sigs, device)
+    n, n_hash = sigs.shape
+    block = block or row_block(n, n_hash)
+    out = torch.empty((n, n), dtype=torch.int32, device=sigs.device)
+    for s in range(0, n, block):
+        out[s : s + block] = block_counts(sigs, s, min(s + block, n))
+    return out
+
+
+def fetch_counts(counts: torch.Tensor) -> np.ndarray:
+    """The [N, N] counts as a host array, in one copy."""
+    return counts.cpu().numpy()
+
+
+def counts_to_similarity(counts: np.ndarray, n_hash: int) -> np.ndarray:
+    sims = counts.astype(np.float64) / float(n_hash)
+    np.fill_diagonal(sims, 1.0)
+    return sims
+
+
+def signature_similarity(
+    sigs: np.ndarray | torch.Tensor, *, block: int | None = None,
+    device=None,
+) -> np.ndarray:
+    """Symmetric [N, N] float64 similarity = fraction of agreeing slots.
+
+    matches/n_hash is divided in float64 on the host, matching the C++
+    double division (src/minHash.cpp:174) bit for bit.  Diagonal is
+    exactly 1.0 (reference sets it explicitly, src/minHash.cpp:161).
+    """
+    sigs = as_signatures(sigs, device)
+    counts = signature_agreement_counts(sigs, block=block)
+    return counts_to_similarity(fetch_counts(counts), sigs.shape[1])

@@ -1,0 +1,152 @@
+"""Top-k similarity graph for large sequence sets (sparse path).
+
+A dense [N, N] float64 similarity matrix stops being viable around
+N = 30k (a 100k+ set would need 80 GB).  The large-scale path never
+materialises it: each row block's agreement counts are computed on the
+device, immediately reduced to the row's top-k neighbours, and only the
+[N, k] neighbour lists leave the device.  Louvain then runs on the sparse
+symmetrised k-NN graph, the standard construction for similarity-graph
+clustering at scale.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from ..device import resolve_device
+from ..encode import encode
+from .minhash import (
+    as_signatures,
+    block_counts,
+    minhash_signatures,
+    row_block,
+)
+
+
+def _topk_block(sigs: torch.Tensor, start: int, stop: int, k: int):
+    """(counts, neighbour indices), both int64 [stop - start, k], of rows
+    start:stop; the row itself is masked to count -1.
+
+    Equal counts come lowest index first, by construction: the top-k runs
+    over the key (count + 1) * N + (N - 1 - column), which is distinct
+    within a row, so it does not matter how ``torch.topk`` orders ties.
+    """
+    n = sigs.shape[0]
+    counts = block_counts(sigs, start, stop).to(torch.int64)  # [b, N]
+    rows = torch.arange(stop - start, device=sigs.device)
+    counts[rows, rows + start] = -1
+    cols = torch.arange(n - 1, -1, -1, device=sigs.device)  # N - 1 - column
+    key = (counts + 1) * n + cols[None, :]
+    top = torch.topk(key, k, dim=1).values
+    return top // n - 1, n - 1 - top % n
+
+
+def minhash_topk(
+    sigs: np.ndarray | torch.Tensor,
+    k: int = 64,
+    *,
+    block: int | None = None,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(similarities float64 [N, k], neighbour indices int32 [N, k]).
+
+    Similarity = agreement_count / n_hash, like the dense path
+    (src/minHash.cpp:174 semantics); self-pairs excluded; k is cut to
+    N - 1; among equal counts the lower index comes first.  A set of one
+    sequence has no neighbour: its single entry is index 0 at similarity 0.
+    ``block=None`` sizes the row block from ``minhash.COMPARE_BYTES``.
+    """
+    sigs = as_signatures(sigs, device)
+    n, n_hash = sigs.shape
+    k = min(k, max(n - 1, 1))
+    block = block or row_block(n, n_hash)
+    parts = [_topk_block(sigs, s, min(s + block, n), k)
+             for s in range(0, n, block)]
+    counts = torch.cat([c for c, _ in parts]).cpu().numpy()
+    idx = torch.cat([i for _, i in parts]).to(torch.int32).cpu().numpy()
+    own = counts < 0  # only at N = 1, where the row itself is all there is
+    counts[own] = 0
+    idx[own] = 0
+    return counts.astype(np.float64) / float(n_hash), idx
+
+
+def knn_graph(
+    vals: np.ndarray,
+    idx: np.ndarray,
+    *,
+    threshold: float = 0.0,
+) -> sparse.csr_matrix:
+    """Symmetric CSR adjacency from top-k neighbour lists.
+
+    Edges with similarity < ``threshold`` (or 0) are dropped; mutual
+    duplicates are merged by max.
+    """
+    n, k = vals.shape
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    cols = idx.ravel().astype(np.int64)
+    w = vals.ravel()
+    keep = (w > 0) & (w >= threshold) & (rows != cols)
+    rows, cols, w = rows[keep], cols[keep], w[keep]
+    adj = sparse.coo_matrix((w, (rows, cols)), shape=(n, n)).tocsr()
+    sym = adj.maximum(adj.T)
+    return sym.tocsr()
+
+
+def cluster_large(
+    sequences,
+    *,
+    k: int = 4,
+    n_hash: int = 50,
+    seed: int = 0,
+    top_k: int = 64,
+    thresh_p: float = 0.8,
+    resolution: float = 1.05,
+    louvain_seed: int = 0,
+    chunk: int | None = None,
+    device=None,
+    timings: dict | None = None,
+) -> np.ndarray:
+    """Large-N MinHash clustering without a dense matrix.
+
+    signatures → per-row top-k graph → quantile threshold over observed
+    edge weights → Louvain.  Returns a 1-based membership vector,
+    API-compatible with :func:`dynaalign_torch.cluster.netcluster`.
+
+    Pass a dict as ``timings`` to receive per-stage wall-clock seconds
+    (keys: ``signatures``, ``topk``, ``graph``, ``louvain``).
+    """
+    from ..cluster.louvain import louvain
+
+    dev = resolve_device(device)
+    seqs = list(sequences)
+    enc = encode(seqs, validate=False)
+    t0 = time.perf_counter()
+    sigs = minhash_signatures(
+        enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
+        device=dev,
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # for the timing split
+    t1 = time.perf_counter()
+    vals, idx = minhash_topk(sigs, k=top_k)
+    t2 = time.perf_counter()
+    pos = vals[vals > 0]
+    t = float(np.quantile(pos, thresh_p)) if pos.size else 0.0
+    adj = knn_graph(vals, idx, threshold=t)
+    # keep self-loops like the dense path (unit diagonal)
+    adj = adj + sparse.eye(adj.shape[0], format="csr")
+    t3 = time.perf_counter()
+    membership = louvain(
+        adj, resolution=resolution, seed=louvain_seed
+    ).membership + 1
+    t4 = time.perf_counter()
+    if timings is not None:
+        timings.update(
+            signatures=t1 - t0, topk=t2 - t1, graph=t3 - t2,
+            louvain=t4 - t3,
+        )
+    return membership

@@ -5,49 +5,47 @@ reference (src/pairwiseSeqAlign.cpp): D>U>L tie-breaks, border/interior gap
 asymmetry, the INT_MIN/2 sentinel.  Tests and ``chip_smoke.py`` hold the
 port against it; the port's own compute path never calls it.
 
-The library is built on demand with ``g++`` into ``build/oracle/`` at the
-repository root, named by the hash of its sources.  The build leaves out
-``cpp/Makefile``'s ``-fopenmp``, which a toolchain without libgomp cannot
-link; the source guards OpenMP with ``#ifdef _OPENMP``, and the serial
-all-pairs driver is the baseline anyway.
+It also exposes the oracle's MinHash side (murmur3, the seeded hash
+family, signatures, the similarity matrix), which the MinHash modules are
+held against.
+
+The library is built on demand into ``build/oracle/`` at the repository
+root (:func:`dynaalign_torch.utils.native.build_library`), without
+OpenMP: the serial all-pairs loop is the baseline anyway.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 
 import numpy as np
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = [os.path.join(_ROOT, "cpp", f)
-            for f in ("oracle.cpp", "blosum_tables.h")]
-_BUILD_DIR = os.path.join(_ROOT, "build", "oracle")
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
-
-
-def _build() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for src in _SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    so = os.path.join(_BUILD_DIR, f"liboracle-{h.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *CXX_FLAGS, _SOURCES[0], "-o", tmp],
-                       check=True)
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-    return so
+from .utils.native import build_library
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(_build())
+    lib = ctypes.CDLL(build_library("oracle", ("oracle.cpp",
+                                               "blosum_tables.h")))
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.dyna_murmur3_32.restype = ctypes.c_uint32
+    lib.dyna_murmur3_32.argtypes = [u8p, ctypes.c_int64, ctypes.c_uint32]
+    lib.dyna_hash_family.restype = None
+    lib.dyna_hash_family.argtypes = [ctypes.c_int, ctypes.c_uint32, u32p]
+    lib.dyna_minhash_signatures.restype = None
+    lib.dyna_minhash_signatures.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, u32p,
+    ]
+    lib.dyna_minhash_similarity.restype = None
+    lib.dyna_minhash_similarity.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, f64p,
+    ]
     lib.dyna_nw_pair.restype = ctypes.c_int
     lib.dyna_nw_pair.argtypes = [
         u8p, ctypes.c_int, u8p, ctypes.c_int, ctypes.c_char_p,
@@ -68,6 +66,63 @@ def _bytes(s: str) -> np.ndarray:
 
 def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _flatten(sequences: list[str]):
+    """(one byte buffer, int64 [n+1] offsets, pointers to both)."""
+    data = _bytes("".join(sequences))
+    if data.size == 0:
+        data = np.zeros(1, dtype=np.uint8)  # a valid pointer, never read
+    offsets = np.zeros(len(sequences) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in sequences], out=offsets[1:])
+    return (data, offsets, _u8p(data),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+
+
+def murmur3_32(key: bytes, seed: int) -> int:
+    """MurmurHash3 x86 32-bit of ``key`` under ``seed``."""
+    buf = np.frombuffer(key, dtype=np.uint8).copy()
+    if len(buf) == 0:
+        buf = np.zeros(1, dtype=np.uint8)
+    return int(_lib().dyna_murmur3_32(_u8p(buf), len(key),
+                                      seed & 0xFFFFFFFF))
+
+
+def hash_family(n_hash: int, seed: int) -> np.ndarray:
+    """The ``n_hash`` murmur seeds ``std::mt19937(seed)`` draws: uint32."""
+    out = np.zeros(n_hash, dtype=np.uint32)
+    _lib().dyna_hash_family(
+        n_hash, seed & 0xFFFFFFFF,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return out
+
+
+def minhash_signatures(
+    sequences: list[str], k: int, n_hash: int, seed: int
+) -> np.ndarray:
+    """MinHash signatures uint32 [N, n_hash] of the seeded hash family."""
+    data, offsets, dp, op = _flatten(sequences)
+    out = np.zeros((len(sequences), n_hash), dtype=np.uint32)
+    _lib().dyna_minhash_signatures(
+        dp, op, len(sequences), k, n_hash, seed & 0xFFFFFFFF,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return out
+
+
+def minhash_similarity(
+    sequences: list[str], k: int = 4, n_hash: int = 50, seed: int = 0
+) -> np.ndarray:
+    """Seeded similarityMH: float64 [N, N], unit diagonal."""
+    data, offsets, dp, op = _flatten(sequences)
+    n = len(sequences)
+    out = np.zeros((n, n), dtype=np.float64)
+    _lib().dyna_minhash_similarity(
+        dp, op, n, k, n_hash, seed & 0xFFFFFFFF,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out
 
 
 def _check(rc: int, matrix_name: str) -> None:
@@ -99,14 +154,11 @@ def nw_similarity(
     """All-pairs NW percent-identity matrix [N, N] in float64, serial like
     the reference's similarityNW driver (src/pairwiseSeqAlign.cpp:340-352).
     """
-    data = _bytes("".join(sequences))
-    offsets = np.zeros(len(sequences) + 1, dtype=np.int64)
-    np.cumsum([len(s) for s in sequences], out=offsets[1:])
+    data, offsets, dp, op = _flatten(sequences)
     n = len(sequences)
     out = np.zeros((n, n), dtype=np.float64)
     rc = _lib().dyna_nw_allpairs(
-        _u8p(data), offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        n, matrix_name.encode(), gap_open, gap_ext, 1,
+        dp, op, n, matrix_name.encode(), gap_open, gap_ext, 1,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
     )
     _check(rc, matrix_name)

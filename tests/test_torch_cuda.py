@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (nw_gotoh, nw_gotoh_xl, probe_shift),
-against their plain versions and the C++ oracle.  Without a card every
-test skips.  On a machine with one (and no JAX, whose import in
+"""The port on the card: the CUDA kernels (nw_gotoh, nw_gotoh_xl,
+probe_shift) against their plain versions and the C++ oracle, and the
+MinHash, top-k, clustering and hybrid entry points against the oracle and
+their own ``device="cpu"`` results.  Without a card every test skips.  On a machine with one (and no JAX, whose import in
 conftest.py would fail):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
@@ -266,3 +267,117 @@ def test_wrapper_rejects_length_past_width_on_card(cuda):
     args[1][0] = args[0].shape[1] + 1
     with pytest.raises(ValueError, match="lengths out of range"):
         nw_cuda.nw_similarity_batch_cuda(*args, blosum.get_matrix(device=cuda))
+
+
+# --- MinHash, top-k, clustering and the hybrid pipelines on the card ---
+
+
+def _mh_seqs(seed, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list(ALPHABET[:20]), size=k))
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+@pytest.mark.parametrize("k", range(1, 10))
+def test_signatures_equal_oracle_on_card(cuda, k):
+    from dynaalign_torch.ops import minhash
+
+    seqs = _mh_seqs(k, 200, 0, 80)
+    enc = encode(seqs, validate=False)
+    sigs = minhash.minhash_signatures(enc.ascii, enc.lengths, k=k,
+                                      n_hash=70, seed=2**31 + k, chunk=64)
+    assert sigs.device.type == "cuda" and sigs.dtype == torch.int32
+    np.testing.assert_array_equal(
+        minhash.signatures_to_numpy(sigs),
+        oracle.minhash_signatures(seqs, k, 70, 2**31 + k))
+
+
+@pytest.mark.parametrize("k, n_hash", [(2, 50), (4, 50), (4, 300)])
+def test_similarity_mh_on_card(cuda, k, n_hash):
+    from dynaalign_torch import MinHashEngine, similarity_mh
+
+    seqs = load_sequences("evp_peparray", 300) + ["", "AR"]
+    got = similarity_mh(seqs, k, n_hash, seed=5)
+    np.testing.assert_array_equal(
+        got, oracle.minhash_similarity(seqs, k, n_hash, 5))
+    np.testing.assert_array_equal(
+        got, similarity_mh(seqs, k, n_hash, seed=5, device="cpu"))
+    np.testing.assert_array_equal(
+        got, similarity_mh(seqs, k, n_hash, seed=5, chunk=50, block=33))
+    for cache in (True, False):
+        eng = MinHashEngine(seqs, k, n_hash, seed=5, cache_counts=cache)
+        np.testing.assert_array_equal(eng(seqs[40:90]), got[40:90, 40:90])
+
+
+def test_agreement_counts_int32_on_card(cuda):
+    from dynaalign_torch.ops import minhash
+
+    sigs = np.random.default_rng(3).integers(
+        0, 4, size=(500, 300)).astype(np.uint32) + np.uint32(0x7FFFFFFE)
+    got = minhash.signature_agreement_counts(sigs, block=77)
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), (sigs[:, None, :] == sigs[None, :, :]).sum(-1))
+
+
+@pytest.mark.parametrize("n, h, k, block", [(96, 8, 7, 32), (61, 5, 60, None),
+                                            (1, 4, 3, None), (2, 4, 3, 1)])
+def test_topk_tie_order_on_card(cuda, n, h, k, block):
+    from dynaalign_torch.ops.topk_graph import minhash_topk
+
+    sigs = np.random.default_rng(7).integers(0, 3, size=(n, h)).astype(
+        np.uint32)
+    vals, idx = minhash_topk(sigs, k=k, block=block)
+    cvals, cidx = minhash_topk(sigs, k=k, block=block, device="cpu")
+    np.testing.assert_array_equal(idx, cidx)
+    np.testing.assert_array_equal(vals, cvals)
+    counts = (sigs[:, None, :] == sigs[None, :, :]).sum(-1).astype(np.int64)
+    np.fill_diagonal(counts, -1)
+    if n > 1:
+        for i in range(n):
+            np.testing.assert_array_equal(
+                idx[i], np.argsort(-counts[i], kind="stable")[: idx.shape[1]])
+
+
+def test_clustering_on_card_equals_cpu(cuda):
+    from dynaalign_torch import cluster_large, clusterbreak
+
+    seqs = load_sequences("evp_peparray", 200)
+    got = clusterbreak(seqs, verbose=False)
+    ref = clusterbreak(seqs, verbose=False, device="cpu")
+    np.testing.assert_array_equal(got.clustered_seq, ref.clustered_seq)
+    assert got.filtered_seq == ref.filtered_seq and got.n_calls == ref.n_calls
+    big = load_sequences("allunique", 1500)
+    np.testing.assert_array_equal(
+        cluster_large(big, top_k=16), cluster_large(big, top_k=16,
+                                                    device="cpu"))
+
+
+def test_hybrid_on_card(cuda):
+    """The hybrid pipelines launch the NW kernels, and equal their CPU
+    results; sparse equals dense at top_k = N - 1."""
+    from dynaalign_torch import (
+        cluster_large_exact, similarity_hybrid, similarity_hybrid_sparse,
+    )
+
+    seqs = load_sequences("h3n2sample", 60)
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    dense = similarity_hybrid(seqs, prefilter_threshold=0.5)
+    assert nw_cuda.LAUNCHES > 0 and nw_cuda.LAUNCHES_XL == 0
+    np.testing.assert_array_equal(
+        dense, similarity_hybrid(seqs, prefilter_threshold=0.5,
+                                 device="cpu"))
+    sp = similarity_hybrid_sparse(seqs, top_k=59, prefilter_threshold=0.5)
+    np.testing.assert_array_equal(sp.toarray(), dense)
+    long = [seqs[2 * k] + seqs[2 * k + 1] + seqs[2 * k] for k in range(6)]
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    ldense = similarity_hybrid(long)
+    assert nw_cuda.LAUNCHES_XL > 0 and nw_cuda.LAUNCHES == 0
+    full = similarity_nw(long)
+    kept = (ldense != 0) & ~np.eye(6, dtype=bool)
+    assert kept.any()
+    np.testing.assert_array_equal(ldense[kept], full[kept])
+    pep = load_sequences("allunique", 1200)
+    np.testing.assert_array_equal(
+        cluster_large_exact(pep, top_k=16),
+        cluster_large_exact(pep, top_k=16, device="cpu"))
