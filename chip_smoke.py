@@ -6,9 +6,10 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
-     started together) and the two C++ libraries (g++), printing the ptxas register/shared-memory/spill
-     lines and, for the step loop of both NW kernels, the SASS instructions
-     per DP cell and whether the DPX opcodes are in its mix;
+     started together) and the three C++ libraries (g++), printing the
+     ptxas register/shared-memory/spill lines and, for the step loop of
+     both NW kernels, the SASS instructions per DP cell and whether the DPX
+     opcodes are in its mix;
   3. nw_gotoh against its plain PyTorch version on the card, exactly, on
      seeded fuzz of every instantiation (all BLOSUM tables and gap
      settings, lengths at each strip capacity, 1-4 columns, tie-heavy
@@ -56,7 +57,17 @@ Phases (any failure raises; the exit code is then non-zero):
  14. clustering: clusterbreak on the 641 evp_peparray 12-mers, card equal
      to CPU; cluster_large and cluster_large_exact on allunique with their
      stage timings; Louvain's native pass equal to its numpy pass on
-     allunique[:4096].
+     allunique[:4096];
+ 15. pipeline and CLI: BASELINE config 3 (Pipeline, MH k=4 n_hash=500,
+     clusterbreak size_max=800 thresh_p=0.8, consensus) on all 8,103
+     h3n2sample rows, each stage timed, its clusters.csv and consensus.csv
+     held to sha256 digests pinned from the JAX package; the MSA's native
+     row DP against its numpy plain version on the three largest clusters;
+     then `python -m dynaalign_torch` as a user runs it (similarity on the
+     long set and on h3n2sample[:1000], pipeline on evp_peparray, cluster
+     --engine hybrid-sparse on allunique, consensus on the evp run's
+     clusters.csv, stats, datasets, warm), each output held to phases 5, 7 and 14, pinned digests or the
+     in-process result.
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -64,6 +75,7 @@ the last line.  Without a card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import subprocess
@@ -713,7 +725,7 @@ def phase_clustering(evp_all, allunique):
           f"device='cpu' {cpu_s:.3f} s; equal")
 
     n = len(allunique)
-    for fn in (cluster_large, cluster_large_exact):
+    for fn in (cluster_large, cluster_large_exact):  # the last mem is kept
         timings = {}
         t0 = time.perf_counter()
         mem = fn(allunique, timings=timings)
@@ -737,6 +749,239 @@ def phase_clustering(evp_all, allunique):
     print("  allunique[:4096], cluster_large and cluster_large_exact: "
           "membership equal between Louvain's native pass and its numpy "
           "pass")
+    return mem  # cluster_large_exact's on all of allunique
+
+# sha256 of the files the JAX package's CLI writes for BASELINE config 3,
+# pinned from its run on the CPU:
+#   JAX_PLATFORMS=cpu python -m dynaalign_tpu pipeline --input h3n2sample \
+#       --engine mh --k 4 --n-hash 500 --size-max 800 --thresh-p 0.8 \
+#       --output-dir c3
+# (6,046 clustered into 103 clusters, 2,057 filtered; the port's own
+# `--device cpu` run of the same command writes the same two files)
+C3_DIGESTS = {
+    "clusters.csv":
+        "1d26f37e08d2ae6f0479c50a18a87d30c1f313e3aac621112dfc9daaad04c934",
+    "consensus.csv":
+        "7f257ea80f3fa56779ca9ee60b167f6fe9091bafd9140c840578e92e24babaec",
+}
+C3_COUNTS = {"consensus rows": 103, "filtered": 2057, "converged": True}
+# likewise from `python -m dynaalign_tpu pipeline --engine nw --input
+# evp_peparray --size-max 30 --output-dir evp`
+EVP_NW_DIGESTS = {
+    "clusters.csv":
+        "437bf1a79fe7b9ba516defa6791f6fcf4b57a4274be88d5001693813f7219461",
+    "consensus.csv":
+        "177da6e4ab783515d351ef2a4a8ed0cedbb63deb05100b96b7c0a3075dd2bc6d",
+}
+# what the JAX package's `datasets` subcommand prints
+DATASETS_OUT = """\
+adenovirus: 4207 rows (sequences in PROBE_SEQUENCE)
+allunique: 65339 rows (sequences in peptides)
+evp_peparray: 641 rows (sequences in PROBE_SEQUENCE)
+h3n2ha1415: 11517 rows (sequences in sequence)
+h3n2sample: 8103 rows (sequences in sequence)
+herv: 5701 rows (sequences in PROBE_SEQUENCE)
+mitochondria: 383 rows (sequences in PROBE_SEQUENCE)
+parvovirus: 752 rows (sequences in PROBE_SEQUENCE)
+polyomavirus: 663 rows (sequences in PROBE_SEQUENCE)
+"""
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _check_digests(out_dir: str, want: dict[str, str], what: str) -> None:
+    for name, digest in want.items():
+        got = _sha256(os.path.join(out_dir, name))
+        if got != digest:
+            raise AssertionError(f"{what}: {name} sha256 {got} != {digest}")
+
+
+def _cli(*argv) -> tuple[float, str]:
+    """(wall seconds, stdout) of ``python -m dynaalign_torch *argv`` from
+    the repository root on the default device; a failure raises."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dynaalign_torch", *argv],
+                         cwd=ROOT, check=True, capture_output=True,
+                         text=True).stdout
+    wall = time.perf_counter() - t0
+    print(f"  $ python -m dynaalign_torch {' '.join(argv)}: {wall:.3f} s")
+    for line in out.splitlines():
+        print(f"    {line}")
+    return wall, out
+
+
+def _built_files() -> dict[str, float]:
+    """Every built library under build/ and its modification time."""
+    out = {}
+    for sub in ("kernels", "oracle", "louvain", "msadp"):
+        d = os.path.join(ROOT, "build", sub)
+        for f in sorted(os.listdir(d)):
+            out[f"{sub}/{f}"] = os.path.getmtime(os.path.join(d, f))
+    return out
+
+
+def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
+    """[15] BASELINE config 3 in process through Pipeline, the MSA's
+    native row DP against its plain version, and the CLI as a user runs
+    it, each output held to one that already stands."""
+    import importlib
+    import shutil
+
+    from dynaalign_torch import Pipeline, cluster_consensus, cli
+    from dynaalign_torch.analysis import compute_similarity_stats
+    from dynaalign_torch.config import (
+        ClusterBreakConfig, MinHashConfig, PipelineConfig,
+    )
+    from dynaalign_torch.consensus import msa
+    from dynaalign_torch.io.seqio import write_fasta
+    from dynaalign_torch.models import pipeline as pmod
+    from dynaalign_torch.utils.profiling import Timings
+
+    cb_mod = importlib.import_module("dynaalign_torch.cluster.clusterbreak")
+
+    print("[15] pipeline and CLI")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    n = len(h3n2_all)
+    pipe = Pipeline(PipelineConfig(
+        similarity="mh", minhash=MinHashConfig(k=4, n_hash=500, seed=0),
+        clusterbreak=ClusterBreakConfig(thresh_p=0.8, size_max=800,
+                                        size_min=3)))
+    t = Timings()
+    with t.section("cluster", items=n):
+        c_stages, clusters = stage_times({
+            (pmod, "similarity_mh"): "similarity_mh",
+            (cb_mod, "quantile_threshold"): "quantile threshold",
+            (cb_mod, "netcluster"): "netcluster (Louvain)",
+        }, lambda: pipe.cluster(h3n2_all))
+    with t.section("consensus", items=len(clusters.clustered_seq)):
+        n_stages, consensus = stage_times({
+            (msa, "_kmer_distance"): "k-mer distance",
+            (msa, "_upgma_order"): "UPGMA",
+            (msa, "_profile_scores"): "profile scores (BLAS)",
+            (msa, "_row_dp"): "row DP (native)",
+            (msa, "_traceback_path"): "traceback",
+        }, lambda: pipe.consensus(clusters))
+    c3_dir = os.path.join(WORK, "c3")
+    os.makedirs(c3_dir)
+    cli._write_clusters_csv(os.path.join(c3_dir, "clusters.csv"),
+                            clusters.clustered_seq, clusters.filtered_seq)
+    cli._write_consensus_csv(os.path.join(c3_dir, "consensus.csv"),
+                             consensus)
+    counts = {"consensus rows": len(consensus),
+              "filtered": len(clusters.filtered_seq),
+              "converged": clusters.converged}
+    print(f"  BASELINE config 3 (clusterbreak size_max=800 thresh_p=0.8 + "
+          f"consensus, MH k=4 n_hash=500), all {n} h3n2sample rows with "
+          f"duplicates: {clusters.n_calls} calls, "
+          f"{len(clusters.clustered_seq)} clustered into {len(consensus)} "
+          f"clusters, {len(clusters.filtered_seq)} filtered, converged="
+          f"{clusters.converged}; cluster {t.total('cluster'):.3f} s, "
+          f"consensus {t.total('consensus'):.3f} s, together "
+          f"{t.total('cluster') + t.total('consensus'):.3f} s = "
+          f"{n / (t.total('cluster') + t.total('consensus')):.1f} "
+          "sequences/s")
+    print("  cluster step by step, s, " + _stage_text(c_stages))
+    print("  consensus step by step, s, " + _stage_text(n_stages))
+    if counts != C3_COUNTS:
+        raise AssertionError(f"config 3 counts {counts} != {C3_COUNTS}")
+    _check_digests(c3_dir, C3_DIGESTS, "config 3")
+    print("  clusters.csv and consensus.csv equal to the JAX package's "
+          "(sha256); counts equal to its record (103 / 2,057 / converged)")
+
+    # the native row DP against its plain version on the largest clusters
+    cl = clusters.clustered_seq
+    ids, sizes = np.unique(cl[:, 1], return_counts=True)
+    top = ids[np.argsort(-sizes, kind="stable")[:3]]
+    want = [row for row in consensus.tolist() if row[0] in set(top)]
+    real = msa._row_dp
+    msa._row_dp = msa._numpy_row_dp
+    try:
+        t0 = time.perf_counter()
+        plain = cluster_consensus(cl[np.isin(cl[:, 1], top)])
+        plain_s = time.perf_counter() - t0
+    finally:
+        msa._row_dp = real
+    if plain.tolist() != want:
+        raise AssertionError("MSA: native row DP != numpy row DP")
+    print(f"  the three largest config-3 clusters ({sorted(sizes.tolist())[-3:]} "
+          f"rows): consensus with the numpy row DP swapped in "
+          f"({plain_s:.3f} s) equal to the native one's")
+
+    # the CLI, as a user runs it, on the card
+    clis = {}
+    long_fa = os.path.join(WORK, "long.fasta")
+    write_fasta(long_fa, [f"long{i}" for i in range(len(long))], long)
+    out = os.path.join(WORK, "long.npz")
+    clis["similarity nw, long set"], _ = _cli(
+        "similarity", "--engine", "nw", "--input", long_fa, "--output", out)
+    with np.load(out) as z:
+        if not np.array_equal(z["similarity"], lsims):
+            raise AssertionError("CLI similarity on the long set != phase 7")
+    out = os.path.join(WORK, "h3n2.npz")
+    clis["similarity nw, h3n2sample[:1000]"], _ = _cli(
+        "similarity", "--engine", "nw", "--input", "h3n2sample", "--limit",
+        "1000", "--output", out)
+    with np.load(out) as z:
+        if not np.array_equal(z["similarity"], sims):
+            raise AssertionError("CLI similarity on h3n2[:1000] != phase 5")
+    print("  both similarity runs equal to phases 7 and 5")
+    evp_dir = os.path.join(WORK, "evp")
+    clis["pipeline nw, evp_peparray"], _ = _cli(
+        "pipeline", "--engine", "nw", "--input", "evp_peparray",
+        "--size-max", "30", "--output-dir", evp_dir)
+    _check_digests(evp_dir, EVP_NW_DIGESTS, "evp_peparray nw pipeline")
+    print("  pipeline files equal to the JAX package's (sha256)")
+    out = os.path.join(WORK, "allunique.csv")
+    clis["cluster hybrid-sparse, allunique"], _ = _cli(
+        "cluster", "--engine", "hybrid-sparse", "--input", "allunique",
+        "--output", out)
+    with open(out) as f:
+        got = [row["cluster"] for row in csv.DictReader(f)]
+    if got != [str(int(c)) for c in exact_mem]:
+        raise AssertionError("CLI hybrid-sparse != phase 14's "
+                             "cluster_large_exact")
+    print("  memberships equal to phase 14's cluster_large_exact")
+    out = os.path.join(WORK, "consensus.csv")
+    clis["consensus, evp_peparray clusters"], _ = _cli(
+        "consensus", "--clusters", os.path.join(evp_dir, "clusters.csv"),
+        "--output", out)
+    if _sha256(out) != EVP_NW_DIGESTS["consensus.csv"]:
+        raise AssertionError("CLI consensus != the evp pipeline's "
+                             "consensus.csv")
+    print("  consensus equal to the evp_peparray pipeline's consensus.csv")
+    clis["stats"], text = _cli("stats", "--similarity",
+                               os.path.join(WORK, "h3n2.npz"))
+    if text != json.dumps(compute_similarity_stats(sims).as_dict(),
+                          default=list, indent=2) + "\n":
+        raise AssertionError("CLI stats != compute_similarity_stats")
+    clis["datasets"], text = _cli("datasets")
+    if text != DATASETS_OUT:
+        raise AssertionError("CLI datasets != the JAX CLI's listing")
+    before = _built_files()
+    clis["warm mh,nw"], text = _cli("warm", "--input", "h3n2sample",
+                                    "--engines", "mh,nw")
+    warm = json.loads(text)
+    if list(warm) != ["warmed", "n_seqs", "max_len", "stage_seconds",
+                      "total_seconds"] or warm["warmed"] != ["mh", "nw"] or (
+            warm["n_seqs"] != 128
+            or warm["max_len"] != max(len(s) for s in h3n2_all)):
+        raise AssertionError(f"CLI warm printed {warm}")
+    if _built_files() != before:
+        raise AssertionError("warm built something: the kernels and "
+                             "libraries were not all in place")
+    print(f"  stats, datasets and warm as the JAX CLI prints them; warm "
+          f"found all {len(before)} built libraries in place")
+    print("  CLI wall s: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in clis.items()))
+    return t
 
 
 def main() -> int:
@@ -772,12 +1017,14 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     from dynaalign_torch.cluster import _native as louvain_native
+    from dynaalign_torch.consensus import _native as msa_native
 
     t0 = time.perf_counter()
     oracle._lib()
     louvain_native._lib()
-    print(f"  built the C++ oracle and the Louvain pass (g++) in "
-          f"{time.perf_counter() - t0:.2f} s")
+    msa_native._lib()
+    print(f"  built the C++ oracle, the Louvain pass and the MSA row DP "
+          f"(g++) in {time.perf_counter() - t0:.2f} s")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     g_main, r_main = nw_cuda.INSTANCES[-1]
     for name, fn, rows in (
@@ -1177,7 +1424,8 @@ def main() -> int:
     torch_stages.update(phase_topk(dev, allunique))
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     phase_hybrid(h3n2, sims, long, lsims, load_sequences("herv"))
-    phase_clustering(evp_all, allunique)
+    exact_mem = phase_clustering(evp_all, allunique)
+    phase_pipeline(h3n2_all, sims, long, lsims, exact_mem)
     print("torch stages (no hand-written kernel), ms / bound ms / share: "
           + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
                       for k, (ms, b) in torch_stages.items()))

@@ -12,7 +12,11 @@ Peptide and protein similarity and clustering on an NVIDIA Hopper card:
   the top-k neighbour graph, as PyTorch tensor code on the card;
 * Louvain, ``netcluster`` and the recursive ``clusterbreak`` on the host;
 * the hybrid pipelines: a MinHash prefilter, dense or top-k, whose
-  surviving pairs are rescored exactly by the NW kernels.
+  surviving pairs are rescored exactly by the NW kernels;
+* progressive MSA and IUPAC consensus per cluster on the host
+  (``cluster_consensus``, on the native row DP of ``cpp/msa_dp.cpp``), and
+  the ``Pipeline`` that chains similarity → clusterbreak → consensus;
+* a command-line interface, ``python -m dynaalign_torch …``.
 
 Outputs equal the JAX package's and the C++ oracle's element for element.
 Every entry point takes ``device=None``, which means the card and raises
@@ -35,8 +39,11 @@ from .cluster import (  # noqa: F401
     louvain_mod,
     netcluster,
 )
+from .consensus import cluster_consensus, consensus_sequence  # noqa: F401
 from .encode import encode  # noqa: F401
 from .models import (  # noqa: F401
+    Pipeline,
+    PipelineResult,
     cluster_large_exact,
     nw_rescore_pairs,
     similarity_hybrid,

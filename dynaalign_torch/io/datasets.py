@@ -1,7 +1,11 @@
 """Bundled datasets, read from the repository's ``data/*.npz``.
 
 The reference lazy-loads nine .rda datasets (reference: data/*.rda); the
-repository carries them converted to .npz.
+repository carries them converted to .npz.  Where a conversion is missing,
+the dataset is parsed from the reference package's own .rda
+(:mod:`dynaalign_torch.io.rda`), looked for in ``reference/data/`` inside
+this repository; nothing outside the repository is read.  A user's .rda
+elsewhere is read with ``io.rda.load_rda(path)``.
 
 Dataset roles:
   evp_peparray   641 peptide-array rows, PROBE_SEQUENCE 12-mers (quick start)
@@ -42,17 +46,31 @@ SEQUENCE_COLUMN = {
     "polyomavirus": "PROBE_SEQUENCE",
 }
 
-_REPO_DATA = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "data"
+_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
+_REPO_DATA = os.path.join(_ROOT, "data")
+_REFERENCE_DATA = os.path.join(_ROOT, "reference", "data")
 
 
 def load_dataset(name: str) -> dict[str, np.ndarray]:
     """Load a bundled dataset as {column: array}."""
     if name not in DATASETS:
         raise ValueError(f"unknown dataset {name!r}; available: {DATASETS}")
-    with np.load(os.path.join(_REPO_DATA, f"{name}.npz")) as z:
-        return {k: z[k] for k in z.files}
+    npz_path = os.path.join(_REPO_DATA, f"{name}.npz")
+    if os.path.exists(npz_path):
+        with np.load(npz_path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    rda_path = os.path.join(_REFERENCE_DATA, f"{name}.rda")
+    if not os.path.exists(rda_path):
+        raise FileNotFoundError(
+            f"dataset {name!r}: neither {npz_path} nor {rda_path} exists; "
+            "read an .rda elsewhere with dynaalign_torch.io.rda.load_rda(path)"
+        )
+    from .rda import load_rda, to_columns
+
+    (obj,) = load_rda(rda_path).values()
+    return to_columns(obj)
 
 
 def load_sequences(name: str, limit: int | None = None) -> list[str]:

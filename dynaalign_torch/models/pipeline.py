@@ -1,5 +1,12 @@
-"""The hybrid pipelines: a MinHash prefilter, then exact NW rescoring.
+"""The end-to-end pipeline and the hybrid similarity engines.
 
+:class:`Pipeline` is the framework's "model": the full peptide-clustering
+flow the reference demonstrates in its README (README.md:33-64: similarity
+matrix → clusterbreak → clusterconsensus), packaged behind one
+configurable object, with the engines ``"mh"``, ``"nw"``,
+``"nw_bucketed"`` and ``"hybrid"``.
+
+The hybrid engines run a MinHash prefilter, then exact NW rescoring.
 Cheap signatures prune the pair space, and only the pairs at or above the
 MH threshold go through the exact DP (the viral-panel hybrid
 configuration):
@@ -15,6 +22,7 @@ configuration):
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
@@ -29,8 +37,13 @@ from ..api import (
     _ratio,
     _resolve_device,
     similarity_mh,
+    similarity_nw,
+    similarity_nw_bucketed,
 )
+from ..cluster import ClusterBreakResult, clusterbreak
 from ..cluster.louvain import louvain
+from ..config import PipelineConfig
+from ..consensus import cluster_consensus
 from ..encode import encode
 from ..ops.minhash import minhash_signatures
 from ..ops.topk_graph import minhash_topk
@@ -301,3 +314,104 @@ def cluster_large_exact(
     if timings is not None:
         timings["louvain"] = time.perf_counter() - t0
     return membership
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    similarity: np.ndarray | None
+    clusters: ClusterBreakResult
+    consensus: np.ndarray
+
+
+class Pipeline:
+    """similarity → clusterbreak → cluster_consensus, configured once.
+
+    The injectable ``sim_fn`` / ``cluster_fn`` extension point of the
+    reference (R/clusterbreak.R:185-188) is preserved: pass callables to
+    override either stage.  The built-in engines run on ``device`` (None
+    means the card, as for every entry point; ``"cpu"`` runs the plain
+    versions on the host); the MSA and consensus run on the host.
+    """
+
+    def __init__(
+        self,
+        config: PipelineConfig | None = None,
+        *,
+        sim_fn=None,
+        cluster_fn=None,
+        device=None,
+    ):
+        self.config = config or PipelineConfig()
+        self._sim_fn = sim_fn
+        self._cluster_fn = cluster_fn
+        self.device = device
+
+    def similarity(self, sequences: Sequence[str]) -> np.ndarray:
+        cfg = self.config
+        if self._sim_fn is not None:
+            return np.asarray(self._sim_fn(list(sequences)))
+        dev = self.device
+        if cfg.similarity == "mh":
+            return similarity_mh(
+                sequences, k=cfg.minhash.k, n_hash=cfg.minhash.n_hash,
+                seed=cfg.minhash.seed, device=dev,
+            )
+        if cfg.similarity == "nw":
+            return similarity_nw(
+                sequences, cfg.nw.matrix_name, cfg.nw.gap_open,
+                cfg.nw.gap_ext, device=dev,
+            )
+        if cfg.similarity == "nw_bucketed":
+            return similarity_nw_bucketed(
+                sequences, cfg.nw.matrix_name, cfg.nw.gap_open,
+                cfg.nw.gap_ext, device=dev,
+            )
+        if cfg.similarity == "hybrid":
+            return similarity_hybrid(
+                sequences, k=cfg.minhash.k, n_hash=cfg.minhash.n_hash,
+                seed=cfg.minhash.seed,
+                prefilter_quantile=cfg.hybrid.prefilter_quantile,
+                prefilter_threshold=cfg.hybrid.prefilter_threshold,
+                matrix_name=cfg.nw.matrix_name,
+                gap_open=cfg.nw.gap_open, gap_ext=cfg.nw.gap_ext,
+                device=dev,
+            )
+        raise ValueError(f"unknown similarity engine {cfg.similarity!r}")
+
+    def cluster(
+        self, sequences: Sequence[str], **overrides
+    ) -> ClusterBreakResult:
+        cfg = self.config.clusterbreak
+        kwargs = dict(
+            thresh_p=cfg.thresh_p, size_max=cfg.size_max,
+            size_min=cfg.size_min, max_itr=cfg.max_itr,
+            resolution=cfg.resolution, seed=cfg.seed, verbose=False,
+            device=self.device,
+        )
+        kwargs.update(overrides)
+        return clusterbreak(
+            sequences,
+            sim_fn=self._sim_fn or self.similarity,
+            cluster_fn=self._cluster_fn,
+            **kwargs,
+        )
+
+    def consensus(self, clusters: ClusterBreakResult) -> np.ndarray:
+        cfg = self.config.consensus
+        return cluster_consensus(
+            clusters.clustered_seq,
+            matrix_name=cfg.matrix_name, threshold=cfg.threshold,
+        )
+
+    def run(
+        self, sequences: Sequence[str], **cluster_overrides
+    ) -> PipelineResult:
+        clusters = self.cluster(sequences, **cluster_overrides)
+        consensus = (
+            self.consensus(clusters)
+            if len(clusters.clustered_seq)
+            else np.empty((0, 2), dtype=object)
+        )
+        return PipelineResult(
+            similarity=None, clusters=clusters, consensus=consensus
+        )

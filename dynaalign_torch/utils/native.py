@@ -1,8 +1,9 @@
 """Build-on-demand of the repository's C++ libraries (``cpp/*.cpp``).
 
-The port binds two of them with ``ctypes``: the serial oracle
-(:mod:`dynaalign_torch.oracle`) and the greedy Louvain pass
-(:mod:`dynaalign_torch.cluster._native`).  Each is compiled with ``g++``
+The port binds three of them with ``ctypes``: the serial oracle
+(:mod:`dynaalign_torch.oracle`), the greedy Louvain pass
+(:mod:`dynaalign_torch.cluster._native`) and the MSA row DP
+(:mod:`dynaalign_torch.consensus._native`).  Each is compiled with ``g++``
 into ``build/<name>/`` at the repository root, named by the hash of its
 sources and of the flags, so an edited source is rebuilt and an unchanged
 one is reused.  A failed build raises: nothing falls back to another
@@ -11,8 +12,9 @@ implementation.
 The flags are ``cpp/Makefile``'s without ``-fopenmp``, which a toolchain
 without libgomp cannot link (the sources guard OpenMP with
 ``#ifdef _OPENMP``).  ``-std=c++17`` is strict ISO and so forbids
-floating-point contraction, which the Louvain pass's bit-compatibility
-with its numpy twin rests on: no ``gnu++17``, no ``-ffast-math``.
+floating-point contraction, which the bit-compatibility of the Louvain
+pass and the MSA row DP with their numpy twins rests on: no ``gnu++17``,
+no ``-ffast-math``.
 """
 
 from __future__ import annotations

@@ -251,3 +251,27 @@ def test_no_source_mentions_jax_or_the_jax_package():
                 if word in data:
                     offenders.append((path, word))
     assert offenders == []
+
+
+@pytest.mark.parametrize("max_len", range(1105, 1126))
+def test_no_routing_gap_near_the_width_limit(max_len, monkeypatch):
+    """The JAX package sends max_len 1112 alone to its slow scan. The port
+    pads as similarity_nw pads, and every padded width up to 1119 goes to
+    nw_gotoh ("cuda"), 1120 and above to nw_gotoh_xl ("cuda_xl")."""
+    from dynaalign_torch import api
+    from dynaalign_torch.ops import MAX_MP1, pick_nw_backend
+    from dynaalign_torch.ops.nw import NWResult
+
+    widths = set()
+
+    def record(a_idx, a_len, b_idx, b_len, sub, *, gap_open, gap_ext):
+        widths.add((a_idx.shape[1], b_idx.shape[1]))
+        ones = torch.ones(a_idx.shape[0], dtype=torch.int32)
+        return NWResult(ones, ones)
+
+    monkeypatch.setattr(api, "nw_batch", record)
+    api.similarity_nw(["A" * max_len, "W" * 7, "ARND" * 3], device="cpu")
+    assert widths == {(max_len, max_len)}
+    want = "cuda" if max_len + 1 <= MAX_MP1 else "cuda_xl"
+    assert want == ("cuda" if max_len <= 1119 else "cuda_xl")
+    assert pick_nw_backend("cuda", *widths.pop()) == want

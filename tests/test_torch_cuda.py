@@ -381,3 +381,63 @@ def test_hybrid_on_card(cuda):
     np.testing.assert_array_equal(
         cluster_large_exact(pep, top_k=16),
         cluster_large_exact(pep, top_k=16, device="cpu"))
+
+
+@pytest.mark.parametrize("engine", ["mh", "nw"])
+def test_pipeline_on_card_equals_cpu(cuda, engine):
+    """The Pipeline's clusters and consensus on the card equal its
+    device="cpu" run; the nw engine launches nw_gotoh."""
+    from dynaalign_torch import Pipeline
+    from dynaalign_torch.config import (
+        ClusterBreakConfig, MinHashConfig, PipelineConfig,
+    )
+
+    seqs = load_sequences("evp_peparray", 200)
+    cfg = PipelineConfig(similarity=engine,
+                         minhash=MinHashConfig(k=2, n_hash=50),
+                         clusterbreak=ClusterBreakConfig(size_max=30,
+                                                         size_min=2))
+    nw_cuda.LAUNCHES = 0
+    got = Pipeline(cfg).run(seqs)
+    assert (nw_cuda.LAUNCHES > 0) == (engine == "nw")
+    ref = Pipeline(cfg, device="cpu").run(seqs)
+    np.testing.assert_array_equal(got.clusters.clustered_seq,
+                                  ref.clusters.clustered_seq)
+    assert got.clusters.filtered_seq == ref.clusters.filtered_seq
+    assert got.clusters.converged == ref.clusters.converged
+    assert got.consensus.tolist() == ref.consensus.tolist()
+
+
+def test_cli_similarity_nw_on_card(cuda, tmp_path):
+    """python -m dynaalign_torch similarity --engine nw, on the card by
+    default, writes similarity_nw's matrix."""
+    import os
+    import subprocess
+    import sys
+
+    from dynaalign_torch.io.seqio import write_fasta
+
+    seqs = load_sequences("h3n2sample", 40)
+    fa = tmp_path / "in.fasta"
+    write_fasta(str(fa), [f"s{i}" for i in range(len(seqs))], seqs)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-m", "dynaalign_torch", "similarity",
+                    "--input", str(fa), "--engine", "nw", "--output",
+                    str(tmp_path / "sim.npz")], check=True, cwd=root)
+    with np.load(tmp_path / "sim.npz") as z:
+        np.testing.assert_array_equal(z["similarity"], similarity_nw(seqs))
+
+
+def test_trace_records_the_card(cuda, tmp_path):
+    """utils.profiling.trace captures the card: nw_gotoh's launches show
+    with device time, and the Chrome trace is written."""
+    from dynaalign_torch.utils.profiling import trace
+
+    seqs = load_sequences("h3n2sample", 64)
+    similarity_nw(seqs)
+    with trace(str(tmp_path / "tr")) as prof:
+        similarity_nw(seqs)
+        torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()}
+    assert any("nw_gotoh" in k and us > 0 for k, us in dev_us.items()), dev_us
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
