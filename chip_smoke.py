@@ -66,11 +66,31 @@ Phases (any failure raises; the exit code is then non-zero):
      then `python -m dynaalign_torch` as a user runs it (similarity on the
      long set and on h3n2sample[:1000], pipeline on evp_peparray, cluster
      --engine hybrid-sparse on allunique, consensus on the evp run's
-     clusters.csv, stats, datasets, warm), each output held to phases 5, 7 and 14, pinned digests or the
-     in-process result.
+     clusters.csv, stats, datasets, warm), each output held to phases 5, 7
+     and 14, pinned digests or the in-process result;
+ 16. parallel/: this script again, in a worker mode, as the ranks of two
+     process groups: (a) world size 1 on NCCL under `python -m
+     torch.distributed.run --standalone --nproc_per_node=1`, so that
+     distributed_init reads torchrun's environment, running at full size
+     sharded_nw_allpairs on h3n2sample[:1000] (nw_gotoh) and on the long
+     set (nw_gotoh_xl), sharded_nw_allpairs_bucketed on the mixed set (both
+     kernels), sharded_minhash_similarity on all 8,103 h3n2sample rows
+     (k=4, n_hash=500), sharded_minhash_topk and cluster_large(mesh=) on
+     the 65,339 allunique 12-mers; (b) 2 ranks on gloo through a file://
+     store, both computing on cuda:0 (the machine has one card, and NCCL
+     refuses two ranks on one card): sharded_nw_allpairs on
+     h3n2sample[:1000], sharded_minhash_similarity on the 641 evp_peparray
+     12-mers (k=2, n_hash=50), sharded_minhash_topk on allunique[:8192].
+     Every result of every rank must equal the single-device result of
+     phases 5, 7, 8, 11, 12 and 14 byte for byte; each run prints its wall
+     and gather seconds, the planners' per-rank split, the NW pairs and the
+     launches of each NW kernel per rank.  A rank that exits non-zero or a
+     world that outlives its timeout fails the phase.
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
+`python3 chip_smoke.py --parallel-worker MODE OUT_DIR [STORE RANK]` is one
+rank of phase 16, which the script starts itself.
 """
 
 from __future__ import annotations
@@ -445,8 +465,9 @@ def _stable_topk(sigs: np.ndarray, rows, k: int, step: int = 64):
     return np.concatenate(vals), np.concatenate(idx)
 
 
-def phase_minhash(dev, evp_all, h3n2_all):
-    """[11] MinHash against the seeded oracle, and its stage times."""
+def phase_minhash(dev, evp_all, h3n2_all, refs):
+    """[11] MinHash against the seeded oracle, and its stage times; the
+    digests of the evp and full h3n2 matrices go into ``refs``."""
     from dynaalign_torch import api, oracle, similarity_mh
     from dynaalign_torch.encode import encode
     from dynaalign_torch.ops import minhash
@@ -457,6 +478,7 @@ def phase_minhash(dev, evp_all, h3n2_all):
         raise AssertionError("similarity_mh != oracle on evp_peparray")
     if not np.array_equal(got, similarity_mh(evp_all, 2, 50, device="cpu")):
         raise AssertionError("similarity_mh: card != cpu on evp_peparray")
+    refs["mh evp"] = _digest(got)
     walls, _ = _best_of(lambda: similarity_mh(evp_all, 2, 50))
     print(f"  similarity_mh, all {len(evp_all)} evp_peparray 12-mers, k=2 "
           "n_hash=50: equal to the oracle in full and to device='cpu'; wall "
@@ -504,6 +526,7 @@ def phase_minhash(dev, evp_all, h3n2_all):
     if not np.array_equal(sims[np.ix_(pick, pick)], oracle.minhash_similarity(
             [h3n2_all[i] for i in pick], k, n_hash, 0)):
         raise AssertionError("similarity_mh != oracle on h3n2sample block")
+    refs["mh h3n2"] = _digest(sims)
     best = min(walls)
     print(f"  similarity_mh, all {n} h3n2sample proteins, k={k} n_hash="
           f"{n_hash} ({hashes:.4e} hashes of real windows, {n * p * n_hash:.4e}"
@@ -552,8 +575,9 @@ def phase_minhash(dev, evp_all, h3n2_all):
     return {"signatures": (sig_ms, sig_bound), "agreement": (agree_ms, a_bound)}
 
 
-def phase_topk(dev, allunique):
-    """[12] The top-k graph: tie order, and allunique at full size."""
+def phase_topk(dev, allunique, refs):
+    """[12] The top-k graph: tie order, and allunique at full size (its
+    lists' digest into ``refs``)."""
     from dynaalign_torch import oracle
     from dynaalign_torch.encode import encode
     from dynaalign_torch.ops import minhash
@@ -591,6 +615,7 @@ def phase_topk(dev, allunique):
     if not np.array_equal(idx[rows], want_i) or not np.array_equal(
             vals[rows], want_c / float(n_hash)):
         raise AssertionError("minhash_topk != stable host sort on allunique")
+    refs["topk allunique"] = _digest(vals, idx)
     best = min(walls)
     bound, by, ops_ms, bytes_ms = _pair_ops_bound(n, n, n_hash, 12 * n * top_k)
     print(f"  allunique, {n} 12-mers, k={k} n_hash={n_hash}: signatures wall "
@@ -698,8 +723,9 @@ def phase_hybrid(h3n2, sims, long, lsims, herv):
           "by step, s, " + _stage_text(stages))
 
 
-def phase_clustering(evp_all, allunique):
-    """[14] clusterbreak, the large-set paths and the Louvain passes."""
+def phase_clustering(evp_all, allunique, refs):
+    """[14] clusterbreak, the large-set paths and the Louvain passes; the
+    digest of cluster_large's membership goes into ``refs``."""
     import importlib
 
     from dynaalign_torch import (
@@ -732,6 +758,7 @@ def phase_clustering(evp_all, allunique):
         wall = time.perf_counter() - t0
         if mem.shape != (n,) or mem.min() != 1:
             raise AssertionError(f"{fn.__name__}: bad membership")
+        refs[f"{fn.__name__} allunique"] = _digest(mem)
         print(f"  {fn.__name__}, all {n} allunique 12-mers: "
               f"{len(np.unique(mem))} clusters, wall {wall:.3f} s "
               f"({n / wall:.1f} sequences/s), timings {timings}")
@@ -982,6 +1009,253 @@ def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
     print("  CLI wall s: " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in clis.items()))
     return t
+
+
+def _digest(*arrays) -> str:
+    """sha256 over each array's dtype, shape and bytes: equal digests are
+    equal arrays, byte for byte."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+# seconds each world of phase 16 may take, start-up included
+PARALLEL_TIMEOUT = {"nccl": 240, "gloo": 180}
+
+
+def _run_ranks(cmds, timeout: float) -> list[str]:
+    """Run the commands (one per rank) together; returns their outputs.
+    A rank that exits non-zero, or a world that outlives ``timeout``
+    seconds, raises, after every process of every rank is killed."""
+    import signal
+
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for c in cmds]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 16: a world hung past {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 16: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def parallel_worker(mode: str, out_dir: str, store=None, rank=None) -> int:
+    """One rank of phase 16.  ``nccl``: under torchrun, distributed_init()
+    from its environment (NCCL, the card LOCAL_RANK), the sharded
+    functions at full size.  ``gloo``: rank ``rank`` of 2 through a file:// store, gloo, both
+    ranks computing on cuda:0.  Writes each result's digest, the launches
+    of each NW kernel, wall and gather seconds and the pairs launched to
+    ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from dynaalign_torch import blosum, cluster_large
+    from dynaalign_torch.encode import encode
+    from dynaalign_torch.io.datasets import load_sequences
+    from dynaalign_torch.ops import minhash, nw_cuda
+    from dynaalign_torch.parallel import (
+        allpairs as ap, distributed_init, make_mesh,
+        sharded_minhash_similarity, sharded_minhash_topk,
+        sharded_nw_allpairs, sharded_nw_allpairs_bucketed,
+    )
+    from dynaalign_torch.parallel.failures import clean_abort
+
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    with clean_abort():
+        if mode == "nccl":
+            distributed_init()
+            mesh = make_mesh()
+        else:
+            distributed_init(f"file://{store}", 2, int(rank), device="cpu")
+            mesh = make_mesh(device="cuda:0")
+        me, ndev = mesh.rank, mesh.size
+        backend = dist.get_backend(mesh.group)
+        if mesh.device.type != "cuda" or backend != mode:
+            raise AssertionError(f"rank {me}: {backend} on {mesh.device}")
+        seen = {"wait": 0.0, "gather": 0.0, "pairs": 0}
+        real_sum, real_launch = ap._sum_shares, ap._launch_into
+
+        def timed_sum(m, full):
+            # the wait for the slowest rank, then the sum and the copy out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier(group=m.group)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = real_sum(m, full)
+            torch.cuda.synchronize()
+            seen["wait"] += t1 - t0
+            seen["gather"] += time.perf_counter() - t1
+            return out
+
+        def counted_launch(full, p, *args):
+            seen["pairs"] += len(p)
+            return real_launch(full, p, *args)
+
+        ap._sum_shares, ap._launch_into = timed_sum, counted_launch
+        report = {"rank": me, "world": ndev, "backend": backend,
+                  "results": {}, "launches": {}, "lines": []}
+
+        def run(name, fn):
+            # twice: the first call of a fresh process loads the kernels;
+            # the second call's gather, launches and pairs are reported
+            walls, digests = [], set()
+            for _ in range(2):
+                seen.update(wait=0.0, gather=0.0, pairs=0)
+                nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+                dist.barrier(group=mesh.group)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                digests.add(_digest(
+                    *(out if isinstance(out, tuple) else (out,))))
+            if len(digests) != 1:
+                raise AssertionError(f"rank {me}: {name} differs between "
+                                     "two calls")
+            report["results"][name] = digests.pop()
+            launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+            report["launches"][name] = launches
+            wall = walls[1]
+            report["lines"].append(
+                f"rank {me}/{ndev} {backend} {name}: wall {walls[0]:.4f} s, "
+                f"again {wall:.4f} s; gather {seen['gather']:.4f} s "
+                f"({seen['gather'] / wall:.4f} of the wall) after waiting "
+                f"{seen['wait']:.4f} s for the other ranks; nw_gotoh "
+                f"launches {launches[0]}, nw_gotoh_xl {launches[1]}; "
+                f"{seen['pairs']} NW pairs launched here")
+
+        sub = blosum.get_matrix().numpy()
+        h3n2 = load_sequences("h3n2sample", limit=1000)
+        enc = encode(h3n2)
+        report["lines"].append(
+            f"plan, h3n2sample[:1000] at tile 16: "
+            f"{ap.nw_allpairs_schedule_stats(len(h3n2), 16, ndev)}")
+        run("nw h3n2", lambda: sharded_nw_allpairs(
+            enc.indices, enc.lengths, sub, mesh=mesh))
+        allunique = load_sequences("allunique")
+        if mode == "nccl":
+            long = long_set()
+            lenc = encode(long)
+            report["lines"].append(
+                f"plan, long set at tile 16: "
+                f"{ap.nw_allpairs_schedule_stats(len(long), 16, ndev)}")
+            run("nw long", lambda: sharded_nw_allpairs(
+                lenc.indices, lenc.lengths, sub, mesh=mesh))
+            mixed = mixed_set()
+            report["lines"].append(
+                "plan, mixed set: "
+                f"{ap.bucketed_schedule_stats(mixed, ndev=ndev)}")
+            run("bucketed mixed", lambda: sharded_nw_allpairs_bucketed(
+                mixed, sub, mesh=mesh))
+            menc = encode(load_sequences("h3n2sample"), validate=False)
+            run("mh h3n2", lambda: sharded_minhash_similarity(
+                menc.ascii, menc.lengths, k=4, n_hash=500, mesh=mesh))
+            top_name, top_set = "topk allunique", allunique
+        else:
+            eenc = encode(load_sequences("evp_peparray"), validate=False)
+            run("mh evp", lambda: sharded_minhash_similarity(
+                eenc.ascii, eenc.lengths, k=2, n_hash=50, mesh=mesh))
+            top_name, top_set = "topk allunique[:8192]", allunique[:8192]
+        tenc = encode(top_set, validate=False)
+        tsigs = minhash.signatures_to_numpy(minhash.minhash_signatures(
+            tenc.ascii, tenc.lengths, k=4, n_hash=50, device=mesh.device))
+        run(top_name, lambda: sharded_minhash_topk(tsigs, 64, mesh=mesh))
+        if mode == "nccl":
+            run("cluster_large allunique",
+                lambda: cluster_large(allunique, mesh=mesh))
+        with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+            json.dump(report, f)
+        for line in report["lines"]:
+            print(line, flush=True)
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(refs, allunique) -> dict[str, list]:
+    """[16] parallel/: (a) world size 1 on NCCL under torchrun, at full
+    size; (b) 2 ranks on gloo, both on cuda:0.  Every rank's every result
+    must equal the single-device result of an earlier phase byte for byte.
+    Returns the NW launches of each run by kernel."""
+    import shutil
+
+    from dynaalign_torch.encode import encode
+    from dynaalign_torch.ops import minhash
+    from dynaalign_torch.ops.topk_graph import minhash_topk
+
+    print("[16] parallel: the sharded functions, (a) world size 1 on NCCL "
+          "(torchrun), (b) 2 ranks on gloo, both on cuda:0")
+    work = os.path.join(WORK, "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    enc = encode(allunique[:8192], validate=False)
+    refs["topk allunique[:8192]"] = _digest(*minhash_topk(
+        minhash.minhash_signatures(enc.ascii, enc.lengths, k=4, n_hash=50),
+        k=64))
+    want = {
+        "nccl": ["nw h3n2", "nw long", "bucketed mixed", "mh h3n2",
+                 "topk allunique", "cluster_large allunique"],
+        "gloo": ["nw h3n2", "mh evp", "topk allunique[:8192]"],
+    }
+    kernels = {"nw h3n2": (True, False), "nw long": (False, True),
+               "bucketed mixed": (True, True)}
+    launches = {"nw_gotoh": [], "nw_gotoh_xl": []}
+    for mode, ranks in (("nccl", 1), ("gloo", 2)):
+        out_dir = os.path.join(work, mode)
+        os.makedirs(out_dir)
+        me = [__file__, "--parallel-worker", mode, out_dir]
+        if mode == "nccl":
+            cmds = [[sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node=1", *me]]
+        else:
+            cmds = [[sys.executable, *me, os.path.join(work, "store"),
+                     str(r)] for r in range(ranks)]
+        t0 = time.perf_counter()
+        _run_ranks(cmds, PARALLEL_TIMEOUT[mode])
+        print(f"  ({chr(97 + (mode == 'gloo'))}) {mode}, {ranks} rank(s): "
+              f"{time.perf_counter() - t0:.3f} s, start-up included")
+        for r in range(ranks):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                report = json.load(f)
+            for line in report["lines"]:
+                print(f"    {line}")
+            if sorted(report["results"]) != sorted(want[mode]):
+                raise AssertionError(f"{mode} rank {r}: ran "
+                                     f"{sorted(report['results'])}")
+            for name, digest in report["results"].items():
+                if digest != refs[name]:
+                    raise AssertionError(f"{mode} rank {r}: {name} != the "
+                                         "single-device result")
+                if name in kernels:
+                    got = report["launches"][name]
+                    if [n > 0 for n in got] != list(kernels[name]):
+                        raise AssertionError(f"{mode} rank {r}: {name} "
+                                             f"launched {got}")
+                    launches["nw_gotoh"].append([mode, r, name, got[0]])
+                    launches["nw_gotoh_xl"].append([mode, r, name, got[1]])
+        print(f"  {mode}: every result of every rank equal, byte for byte, "
+              "to the single-device result of phases 5, 7, 8, 11, 12, 14 "
+              "(top-k of allunique[:8192]: minhash_topk here)")
+    return launches
 
 
 def main() -> int:
@@ -1420,12 +1694,15 @@ def main() -> int:
     allunique = load_sequences("allunique")
     print(f"nvidia-smi name, power.limit: {_smi()}")
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
-    torch_stages = phase_minhash(dev, evp_all, h3n2_all)
-    torch_stages.update(phase_topk(dev, allunique))
+    refs = {"nw h3n2": _digest(sims), "nw long": _digest(lsims),
+            "bucketed mixed": _digest(msims)}
+    torch_stages = phase_minhash(dev, evp_all, h3n2_all, refs)
+    torch_stages.update(phase_topk(dev, allunique, refs))
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     phase_hybrid(h3n2, sims, long, lsims, load_sequences("herv"))
-    exact_mem = phase_clustering(evp_all, allunique)
+    exact_mem = phase_clustering(evp_all, allunique, refs)
     phase_pipeline(h3n2_all, sims, long, lsims, exact_mem)
+    sharded = phase_parallel(refs, allunique)
     print("torch stages (no hand-written kernel), ms / bound ms / share: "
           + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
                       for k, (ms, b) in torch_stages.items()))
@@ -1438,6 +1715,7 @@ def main() -> int:
         "source": "dynaalign_torch/csrc/nw_gotoh.cu",
         "replaces": "dynaalign_tpu/ops/nw_pallas.py:302",
         "launches": launches,
+        "launches_sharded": sharded["nw_gotoh"],
         "equal_to_plain": True,
         "max_abs_err": worst,
         "timed_on": "the first chunk of h3n2sample n=1000",
@@ -1452,6 +1730,7 @@ def main() -> int:
         "source": "dynaalign_torch/csrc/nw_gotoh_xl.cu",
         "replaces": "dynaalign_tpu/ops/nw_pallas.py:1093",
         "launches": launches_xl,
+        "launches_sharded": sharded["nw_gotoh_xl"],
         "equal_to_plain": True,
         "max_abs_err": worst_xl,
         "timed_on": "the long set's one launch; the plain version and "
@@ -1484,4 +1763,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(*sys.argv[2:]))
     sys.exit(main())

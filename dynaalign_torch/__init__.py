@@ -18,6 +18,10 @@ Peptide and protein similarity and clustering on an NVIDIA Hopper card:
   the ``Pipeline`` that chains similarity → clusterbreak → consensus;
 * a command-line interface, ``python -m dynaalign_torch …``.
 
+The root has every public name of the JAX package's root: ``encode`` is the
+encoding module, ``encode_sequences`` its function.  ``parallel`` runs the
+all-pairs work across processes joined by ``torch.distributed``.
+
 Outputs equal the JAX package's and the C++ oracle's element for element.
 Every entry point takes ``device=None``, which means the card and raises
 without one; ``device="cpu"`` runs on the host.
@@ -25,30 +29,43 @@ without one; ``device="cpu"`` runs on the host.
 This package imports neither JAX nor the JAX package.
 """
 
-from .api import (  # noqa: F401
+from . import blosum, encode  # noqa: F401
+from .encode import EncodedSeqs, encode as encode_sequences  # noqa: F401
+
+__version__ = "0.1.0"
+
+from .api import (  # noqa: F401,E402
     MinHashEngine,
     similarity_mh,
     similarity_nw,
     similarity_nw_bucketed,
 )
-from .blosum import MATRIX_NAMES, get_matrix  # noqa: F401
-from .cluster import (  # noqa: F401
+from .blosum import MATRIX_NAMES, get_matrix  # noqa: F401,E402
+from .cluster import (  # noqa: F401,E402
     ClusterBreakResult,
     clusterbreak,
     louvain,
     louvain_mod,
     netcluster,
 )
-from .consensus import cluster_consensus, consensus_sequence  # noqa: F401
-from .encode import encode  # noqa: F401
-from .models import (  # noqa: F401
+from .consensus import (  # noqa: F401,E402
+    cluster_consensus,
+    consensus_sequence,
+    progressive_msa,
+)
+from .analysis import (  # noqa: F401,E402
+    compute_similarity_stats,
+    consensus_plot,
+    plot_similarity_matrix,
+)
+from .models import (  # noqa: F401,E402
     Pipeline,
     PipelineResult,
     cluster_large_exact,
+    minhash,
     nw_rescore_pairs,
+    shingle,
     similarity_hybrid,
     similarity_hybrid_sparse,
 )
-from .ops.topk_graph import cluster_large  # noqa: F401
-
-__version__ = "0.1.0"
+from .ops.topk_graph import cluster_large  # noqa: F401,E402

@@ -234,19 +234,24 @@ def _fill(n: int, vals: np.ndarray) -> np.ndarray:
 
 
 def _pairs_nw(idx_a, len_a, idx_b, len_b, rows, cols, sub, gap_open,
-              gap_ext, chunk):
+              gap_ext, chunk, progress=False):
     """(matches, length) of pairs (idx_a[rows[k]], idx_b[cols[k]]), all on
     the device, streamed in launches of at most ``chunk`` pairs and
-    LAUNCH_BYTES bytes, and fetched once."""
+    LAUNCH_BYTES bytes, and fetched once; ``progress`` prints a line as
+    each launch is enqueued."""
     per_pair = pair_bytes(idx_a.shape[1], idx_b.shape[1])
     chunk = max(1, min(chunk, LAUNCH_BYTES // per_pair))
+    n_launch = -(-rows.numel() // chunk)
     mt, ln = [], []
-    for s in range(0, rows.numel(), chunk):
+    for k, s in enumerate(range(0, rows.numel(), chunk)):
         batch = _gather(idx_a, len_a, idx_b, len_b, rows[s : s + chunk],
                         cols[s : s + chunk])
         res = nw_batch(*batch, sub, gap_open=gap_open, gap_ext=gap_ext)
         mt.append(res.matches)
         ln.append(res.length)
+        if progress:
+            print(f"nw: launch {k + 1}/{n_launch} ({chunk} pairs each)",
+                  flush=True)
     return _fetch(mt, ln)
 
 
@@ -256,6 +261,7 @@ def similarity_nw(
     gap_open: int = 10,
     gap_ext: int = 4,
     *,
+    progress: bool = False,
     device=None,
     chunk: int | None = None,
 ) -> np.ndarray:
@@ -266,7 +272,8 @@ def similarity_nw(
     D > U > L, border/interior gap asymmetry.  Every pair of the upper
     triangle, diagonal included (src/pairwiseSeqAlign.cpp:342), is aligned
     with the lower index as sequence 1.  The encoded set goes to the device
-    once; the pair list is streamed in ``chunk``-pair launches.
+    once; the pair list is streamed in ``chunk``-pair launches, and
+    ``progress`` prints one line per launch.
     """
     n = len(sequences)
     if n == 0:
@@ -278,7 +285,7 @@ def similarity_nw(
     lens = torch.from_numpy(enc.lengths).to(dev)
     iu = torch.triu_indices(n, n, device=dev)  # row-major, rows <= cols
     mt, ln = _pairs_nw(idx, lens, idx, lens, iu[0], iu[1], sub, gap_open,
-                       gap_ext, chunk or DEFAULT_CHUNK)
+                       gap_ext, chunk or DEFAULT_CHUNK, progress)
     return _fill(n, _ratio(mt, ln))
 
 

@@ -444,6 +444,11 @@ def main(argv=None) -> int:
     # at first use into build/kernels/, keyed by the content of their
     # sources, which is that cache already.
     args = build_parser().parse_args(argv)
+    # multi-process runs (torchrun): join this process to the process
+    # group before any work; a no-op without torchrun's environment
+    from .parallel import distributed_init
+
+    distributed_init(device=getattr(args, "device", None))
     return args.fn(args)
 
 

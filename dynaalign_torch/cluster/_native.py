@@ -31,6 +31,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def louvain_native_available() -> bool:
+    """True once the native pass is built and loaded; a failed build
+    raises (nothing falls back to the numpy pass)."""
+    return _lib() is not None
+
+
 def _checked(a: np.ndarray, dtype, size: int, name: str) -> np.ndarray:
     if a.dtype != dtype or not a.flags.c_contiguous or a.shape != (size,):
         raise ValueError(

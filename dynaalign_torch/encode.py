@@ -56,6 +56,14 @@ class EncodedSeqs:
     indices: np.ndarray
     lengths: np.ndarray
 
+    @property
+    def max_len(self) -> int:
+        return self.ascii.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.ascii.shape[0]
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m

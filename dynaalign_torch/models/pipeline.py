@@ -46,7 +46,7 @@ from ..config import PipelineConfig
 from ..consensus import cluster_consensus
 from ..encode import encode
 from ..ops.minhash import minhash_signatures
-from ..ops.topk_graph import minhash_topk
+from ..ops.topk_graph import _topk_neighbours
 
 
 def nw_rescore_pairs(
@@ -155,6 +155,7 @@ def hybrid_topk_edges(
     prefilter_quantile: float = 0.8,
     prefilter_threshold: float | None = None,
     chunk: int | None = None,
+    mesh=None,
     device=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """MH top-k prefilter edge list for the sparse hybrid path.
@@ -170,6 +171,11 @@ def hybrid_topk_edges(
     never scoring the sub-top-k mass; pass an absolute threshold for
     exact dense-path agreement).
 
+    With a :class:`dynaalign_torch.parallel.Mesh` as ``mesh`` the top-k
+    reduction runs row-sharded across its ranks
+    (``parallel.sharded_minhash_topk``, equal to the single-device path),
+    and every rank of the mesh calls this and gets the whole edge list.
+
     Returns (pair_i, pair_j, mh_weight) with pair_i < pair_j, sorted by
     pair_i * N + pair_j.
     """
@@ -181,7 +187,7 @@ def hybrid_topk_edges(
         enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
         device=dev,
     )
-    vals, idx = minhash_topk(sigs, k=top_k)
+    vals, idx = _topk_neighbours(sigs, top_k, mesh)
     kk = vals.shape[1]
     rows = np.repeat(np.arange(n, dtype=np.int64), kk)
     cols = idx.ravel().astype(np.int64)
@@ -219,6 +225,7 @@ def similarity_hybrid_sparse(
     gap_open: int = 10,
     gap_ext: int = 4,
     chunk: int | None = None,
+    mesh=None,
     device=None,
     timings: dict | None = None,
 ) -> sparse.csr_matrix:
@@ -230,6 +237,9 @@ def similarity_hybrid_sparse(
     top-k graph with ``nw_rescore_pairs``, so the exact-NW flow reaches
     sets the dense one cannot.  With ``top_k >= N-1`` and an absolute
     ``prefilter_threshold``, the result equals the dense path exactly.
+
+    ``mesh`` shards the top-k prefilter as in :func:`hybrid_topk_edges`;
+    each rank rescores the kept edges on its own device.
 
     Returns a scipy.sparse CSR [N, N] with exact NW percent identity on
     the kept edges (symmetric) and a unit diagonal.
@@ -244,7 +254,8 @@ def similarity_hybrid_sparse(
     pi, pj, _ = hybrid_topk_edges(
         seqs, k=k, n_hash=n_hash, seed=seed, top_k=top_k,
         prefilter_quantile=prefilter_quantile,
-        prefilter_threshold=prefilter_threshold, chunk=chunk, device=dev,
+        prefilter_threshold=prefilter_threshold, chunk=chunk, mesh=mesh,
+        device=dev,
     )
     t1 = time.perf_counter()
     if len(pi):
@@ -286,6 +297,7 @@ def cluster_large_exact(
     resolution: float = 1.05,
     louvain_seed: int = 0,
     chunk: int | None = None,
+    mesh=None,
     device=None,
     timings: dict | None = None,
 ) -> np.ndarray:
@@ -295,7 +307,8 @@ def cluster_large_exact(
     The exact-rescored sibling of ops.topk_graph.cluster_large: same
     sparse scaling (no dense matrix anywhere), but the graph Louvain
     sees carries exact percent-identity weights instead of Jaccard
-    estimates.  Returns a 1-based membership vector.
+    estimates.  Returns a 1-based membership vector.  ``mesh`` shards the
+    top-k prefilter across its ranks (:func:`hybrid_topk_edges`).
 
     Pass a dict as ``timings`` for per-stage seconds (``edges``,
     ``rescore``, ``louvain``; plus ``n_edges``).
@@ -305,7 +318,7 @@ def cluster_large_exact(
         prefilter_quantile=thresh_p,
         prefilter_threshold=prefilter_threshold,
         matrix_name=matrix_name, gap_open=gap_open, gap_ext=gap_ext,
-        chunk=chunk, device=device, timings=timings,
+        chunk=chunk, mesh=mesh, device=device, timings=timings,
     )
     t0 = time.perf_counter()
     membership = louvain(

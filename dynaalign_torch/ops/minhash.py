@@ -120,10 +120,12 @@ def row_block(n: int, n_hash: int) -> int:
     return max(1, COMPARE_BYTES // max(n * n_hash, 1))
 
 
-def block_counts(sigs: torch.Tensor, start: int, stop: int) -> torch.Tensor:
-    """int32 [stop - start, N]: agreeing slots of rows start:stop against
-    every row."""
-    eq = sigs[start:stop, None, :] == sigs[None, :, :]  # [b, N, H]
+def block_counts(sigs: torch.Tensor, start: int, stop: int,
+                 other: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 [stop - start, M]: agreeing slots of rows start:stop against
+    every row of ``other`` (default ``sigs``, M = N)."""
+    other = sigs if other is None else other
+    eq = sigs[start:stop, None, :] == other[None, :, :]  # [b, M, H]
     return eq.sum(dim=-1, dtype=torch.int32)
 
 

@@ -147,3 +147,18 @@ def nw_similarity_batch(
         prev2 = prev
         prev = dict(M=m_cell, Ix=ix, Iy=iy, MT=mt, LN=ln)
     return NWResult(matches=cap_mt, length=cap_ln)
+
+
+def nw_pairs(a_idx, a_len, b_idx, b_len, sub, *, device=None,
+             **kw) -> np.ndarray:
+    """Convenience: similarity values (float64) for a batch of pairs, on
+    ``device`` (None means the card): through the NW kernel the padded
+    width picks there, through this plain version on the CPU.  ``kw``
+    takes ``gap_open`` and ``gap_ext``."""
+    from ..device import resolve_device
+    from . import nw_batch
+
+    dev = resolve_device(device)
+    args = [torch.as_tensor(x).to(dev, torch.int32)
+            for x in (a_idx, a_len, b_idx, b_len, sub)]
+    return nw_batch(*args, **kw).similarity()

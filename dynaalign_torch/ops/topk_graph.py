@@ -24,6 +24,7 @@ from .minhash import (
     block_counts,
     minhash_signatures,
     row_block,
+    signatures_to_numpy,
 )
 
 
@@ -66,12 +67,29 @@ def minhash_topk(
     block = block or row_block(n, n_hash)
     parts = [_topk_block(sigs, s, min(s + block, n), k)
              for s in range(0, n, block)]
-    counts = torch.cat([c for c, _ in parts]).cpu().numpy()
-    idx = torch.cat([i for _, i in parts]).to(torch.int32).cpu().numpy()
+    return _topk_lists(torch.cat([c for c, _ in parts]).cpu().numpy(),
+                      torch.cat([i for _, i in parts]).cpu().numpy(), n_hash)
+
+
+def _topk_lists(counts: np.ndarray, idx: np.ndarray, n_hash: int):
+    """(similarities float64, indices int32) from ``_topk_block``'s counts
+    and indices of every row."""
     own = counts < 0  # only at N = 1, where the row itself is all there is
-    counts[own] = 0
-    idx[own] = 0
-    return counts.astype(np.float64) / float(n_hash), idx
+    vals = np.where(own, 0, counts).astype(np.float64) / float(n_hash)
+    return vals, np.where(own, 0, idx).astype(np.int32)
+
+
+def _topk_neighbours(sigs: torch.Tensor, k: int, mesh=None):
+    """``minhash_topk`` of ``sigs``, or with a mesh its sharded form,
+    ``parallel.sharded_minhash_topk``, across the mesh's ranks."""
+    if mesh is None:
+        return minhash_topk(sigs, k=k)
+    from ..parallel import sharded_minhash_topk
+
+    out = sharded_minhash_topk(signatures_to_numpy(sigs), k=k, mesh=mesh)
+    if out is None:
+        raise ValueError(f"rank {mesh.rank} is not in the mesh")
+    return out
 
 
 def knn_graph(
@@ -107,6 +125,7 @@ def cluster_large(
     resolution: float = 1.05,
     louvain_seed: int = 0,
     chunk: int | None = None,
+    mesh=None,
     device=None,
     timings: dict | None = None,
 ) -> np.ndarray:
@@ -115,6 +134,11 @@ def cluster_large(
     signatures → per-row top-k graph → quantile threshold over observed
     edge weights → Louvain.  Returns a 1-based membership vector,
     API-compatible with :func:`dynaalign_torch.cluster.netcluster`.
+
+    Pass a :class:`dynaalign_torch.parallel.Mesh` as ``mesh`` to run the
+    top-k reduction row-sharded across its ranks
+    (``parallel.sharded_minhash_topk``, equal to the single-device path);
+    every rank of the mesh calls this, and every rank gets the membership.
 
     Pass a dict as ``timings`` to receive per-stage wall-clock seconds
     (keys: ``signatures``, ``topk``, ``graph``, ``louvain``).
@@ -132,7 +156,7 @@ def cluster_large(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # for the timing split
     t1 = time.perf_counter()
-    vals, idx = minhash_topk(sigs, k=top_k)
+    vals, idx = _topk_neighbours(sigs, top_k, mesh)
     t2 = time.perf_counter()
     pos = vals[vals > 0]
     t = float(np.quantile(pos, thresh_p)) if pos.size else 0.0

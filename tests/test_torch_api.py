@@ -275,3 +275,124 @@ def test_no_routing_gap_near_the_width_limit(max_len, monkeypatch):
     want = "cuda" if max_len + 1 <= MAX_MP1 else "cuda_xl"
     assert want == ("cuda" if max_len <= 1119 else "cuda_xl")
     assert pick_nw_backend("cuda", *widths.pop()) == want
+
+
+def test_root_has_every_name_of_the_jax_root():
+    """In a fresh interpreter: every public name of dynaalign_tpu's root
+    is a name of dynaalign_torch's, of the same kind (module or not)."""
+    code = (
+        "import types, dynaalign_tpu as dj, dynaalign_torch as dt; "
+        "pub = lambda m: {n: isinstance(getattr(m, n), types.ModuleType) "
+        "for n in dir(m) if not n.startswith('_')}; "
+        "a, b = pub(dj), pub(dt); "
+        "bad = sorted(n for n in a if b.get(n) is not a[n]); "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=os.path.dirname(PKG_DIR),
+                   env={**os.environ, "JAX_PLATFORMS": "cpu"})
+
+
+def test_encode_is_the_module():
+    import types
+
+    import dynaalign_torch.encode as m
+
+    assert isinstance(dt.encode, types.ModuleType) and dt.encode is m
+    assert dt.encode_sequences is m.encode and dt.EncodedSeqs is m.EncodedSeqs
+    assert isinstance(dj.encode, types.ModuleType)
+    enc = dt.encode_sequences(["ARND", "A"])
+    assert (enc.n, enc.max_len) == (2, 4) == (jencode(["ARND", "A"]).n,
+                                             jencode(["ARND", "A"]).max_len)
+
+
+# The JAX package's keywords that the port leaves out, by function, each
+# with what takes its place in the port (None: a TPU knob with no
+# counterpart).  README's port section lists the same.
+DROPPED = {
+    "similarity_nw": {"tile": "chunk"},
+    "similarity_nw_bucketed": {"batch": "chunk"},
+    "models.nw_rescore_pairs": {"batch": "chunk"},
+    "oracle.nw_similarity": {"n_threads": None},
+    "parallel.sharded_nw_allpairs": {"backend": None},
+    "parallel.sharded_nw_allpairs_bucketed": {"backend": None},
+    "parallel.bucketed_schedule_stats": {"backend": None},
+    "parallel.plan_bucket_group": {"pallas_ok": None},
+    "parallel.allpairs.pick_group_batch": {"pallas_ok": None},
+}
+PUBLIC = sorted({
+    *(n for n in dir(dj) if not n.startswith("_")
+      and callable(getattr(dj, n)) and not n[0].isupper() or n in (
+          "MinHashEngine", "Pipeline", "EncodedSeqs")),
+    "models.hybrid_topk_edges", "models.nw_rescore_pairs",
+    "oracle.nw_similarity", "oracle.minhash_similarity",
+    "ops.nw.nw_pairs", "ops.topk_graph.minhash_topk",
+    "ops.minhash.minhash_signatures",
+    "cluster._native.louvain_native_available",
+    *(f"parallel.{n}" for n in (
+        "distributed_init", "make_mesh", "replicated", "row_sharded",
+        "block_sharded", "sharded_signature_agreement",
+        "sharded_minhash_similarity", "sharded_nw_allpairs",
+        "sharded_nw_allpairs_bucketed", "sharded_minhash_topk",
+        "plan_nw_allpairs", "nw_allpairs_schedule_stats", "plan_bucket_group",
+        "bucketed_schedule_stats", "allpairs.pick_group_batch",
+        "failures.clean_abort", "failures.check_devices_healthy")),
+})
+
+
+def _resolve(pkg: str, path: str):
+    import importlib
+
+    *mod, name = path.split(".")
+    return getattr(importlib.import_module(".".join([pkg, *mod])), name)
+
+
+@pytest.mark.parametrize("path", PUBLIC)
+def test_keyword_set_equals_jax(path):
+    """The port's keywords are the JAX function's, less DROPPED (with its
+    replacements), plus ``device`` where the port computes on a device."""
+    import inspect
+
+    def names(fn):
+        return set(inspect.signature(fn).parameters)
+
+    ours = names(_resolve("dynaalign_torch", path))
+    theirs = names(_resolve("dynaalign_tpu", path))
+    dropped = DROPPED.get(path, {})
+    want = (theirs - set(dropped)) | {r for r in dropped.values() if r}
+    assert ours - {"device"} == want
+
+
+def test_similarity_nw_progress_prints_one_line_per_launch(capsys):
+    seqs = _mixed()
+    quiet = dt.similarity_nw(seqs, device="cpu", chunk=64)
+    assert capsys.readouterr().out == ""
+    loud = dt.similarity_nw(seqs, progress=True, device="cpu", chunk=64)
+    lines = capsys.readouterr().out.splitlines()
+    n_pairs = len(seqs) * (len(seqs) + 1) // 2
+    n_launch = -(-n_pairs // 64)
+    assert lines == [f"nw: launch {k}/{n_launch} (64 pairs each)"
+                     for k in range(1, n_launch + 1)]
+    np.testing.assert_array_equal(loud, quiet)
+
+
+def test_nw_pairs_equals_jax():
+    from dynaalign_tpu.ops.nw import nw_pairs as jnw_pairs
+
+    from dynaalign_torch.ops.nw import nw_pairs
+
+    seqs = _mixed()
+    enc = encode(seqs)
+    a, b = np.arange(len(seqs)), np.arange(len(seqs))[::-1]
+    args = (enc.indices[a], enc.lengths[a], enc.indices[b], enc.lengths[b])
+    for kw in ({}, {"gap_open": 5, "gap_ext": 1}):
+        got = nw_pairs(*args, blosum.get_matrix(), device="cpu", **kw)
+        want = jnw_pairs(*args, jblosum.get_matrix(), **kw)
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
+
+
+def test_louvain_native_available():
+    from dynaalign_torch.cluster._native import louvain_native_available
+
+    assert louvain_native_available() is True

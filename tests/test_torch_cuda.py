@@ -441,3 +441,41 @@ def test_trace_records_the_card(cuda, tmp_path):
     dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()}
     assert any("nw_gotoh" in k and us > 0 for k, us in dev_us.items()), dev_us
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+def test_sharded_functions_on_card_equal_single_device(cuda):
+    """parallel/'s sharded functions on the mesh of this process alone (no process
+    group) launch the card's kernels and equal the single-device calls."""
+    from dynaalign_torch import cluster_large, similarity_mh
+    from dynaalign_torch import parallel
+    from dynaalign_torch.ops import minhash
+    from dynaalign_torch.ops.topk_graph import minhash_topk
+
+    mesh = parallel.make_mesh()
+    assert mesh.device.type == "cuda" and mesh.group is None
+    sub = blosum.get_matrix().numpy()
+    seqs = load_sequences("h3n2sample", limit=120)
+    mixed = load_sequences("evp_peparray", 40) + [
+        "".join(seqs[i:i + 3]) for i in range(0, 30, 3)]
+    enc = encode(seqs)
+    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    got = parallel.sharded_nw_allpairs(enc.indices, enc.lengths, sub,
+                                       mesh=mesh)
+    assert nw_cuda.LAUNCHES > 0
+    assert got.tobytes() == similarity_nw(seqs).tobytes()
+    got = parallel.sharded_nw_allpairs_bucketed(mixed, sub, mesh=mesh)
+    assert nw_cuda.LAUNCHES_XL > 0
+    assert got.tobytes() == similarity_nw_bucketed(mixed).tobytes()
+    menc = encode(seqs, validate=False)
+    got = parallel.sharded_minhash_similarity(menc.ascii, menc.lengths,
+                                              mesh=mesh)
+    assert got.tobytes() == similarity_mh(seqs).tobytes()
+    peps = load_sequences("allunique", limit=3000)
+    penc = encode(peps, validate=False)
+    sigs = minhash.minhash_signatures(penc.ascii, penc.lengths)
+    got = parallel.sharded_minhash_topk(minhash.signatures_to_numpy(sigs),
+                                        16, mesh=mesh)
+    want = minhash_topk(sigs, 16)
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    np.testing.assert_array_equal(cluster_large(peps, mesh=mesh),
+                                  cluster_large(peps))
