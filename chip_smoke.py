@@ -6,10 +6,11 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
-     started together) and the three C++ libraries (g++), printing the
-     ptxas register/shared-memory/spill lines and, for the step loop of
-     both NW kernels, the SASS instructions per DP cell and whether the DPX
-     opcodes are in its mix;
+     started together, with nw_gotoh_xl's list-order variant XL_QUEUE=0 of
+     tools/nw_variants.py beside them) and the three C++ libraries (g++),
+     printing the ptxas register/shared-memory/spill lines and, for the
+     step loop of both NW kernels, the SASS instructions per DP cell and
+     whether the DPX opcodes are in its mix;
   3. nw_gotoh against its plain PyTorch version on the card, exactly, on
      seeded fuzz of every instantiation (all BLOSUM tables and gap
      settings, lengths at each strip capacity, 1-4 columns, tie-heavy
@@ -26,16 +27,23 @@ Phases (any failure raises; the exit code is then non-zero):
      entry point's own steps, timed in place); every chunk through the
      kernel, held equal to the main path's result, and the first chunk
      through the plain version too; the kernel on that chunk beside its
-     bound, and nw_gotoh_xl on the same chunk; the serial oracle's rate;
+     bound, and nw_gotoh_xl on the same chunk (its wrapper call by call,
+     its work table, and the launch alone, queue and list order in turns);
+     the serial oracle's rate;
   7. the long path: similarity_nw on 96 joins of h3n2sample proteins
      (624-5,094 aa, 4,656 pairs) through nw_gotoh_xl alone, against the
      oracle on two 16x16 blocks, the kernel on every pair and the plain
      version on every fourth, timed beside its bound and the oracle's rate;
+     nw_gotoh_xl's queue of strips timed in turns with its list-order
+     variant (the launch alone, table prebuilt) on the whole set, on every
+     fourth pair and on the longest pair alone (the critical path), with
+     each launch's pairs and items;
   8. similarity_nw_bucketed on a mixed set (12-mers, HA, 2-3 HA joined)
      launching both NW kernels, equal to similarity_nw and the oracle;
   9. nw_rescore_pairs past every TPU ceiling (13,000 x 13,000 and
      12,300 x 17,000 aa, and 300 x 40,000 aa through nw_gotoh_xl's two-word
-     instantiation) against the oracle;
+     instantiation) against the oracle, and the launch alone on each batch
+     (table prebuilt) by CUDA events, queue and list order in turns;
  10. the shift probe: every kind against its plain version, ns per step
      and the marginals of the shuffle and the shifted load;
  11. MinHash: similarity_mh on the 641 evp_peparray 12-mers (k=2,
@@ -328,6 +336,33 @@ def _event_ms(fn, repeat=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / repeat, out
+
+
+def _turns(fns, rounds=2):
+    """({name: best ms}, {name: last result}) of the calls in ``fns``, each
+    timed alone by CUDA events, in turns a b b a, ``rounds`` times."""
+    best, out = {}, {}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(fns)]:
+            ms, out[name] = _event_ms(fns[name])
+            best[name] = min(best.get(name, ms), ms)
+    return best, out
+
+
+def _xl_table_text(a_len, b_len) -> str:
+    """Pairs, queue items (strips) and the most strips of a pair of the
+    nw_gotoh_xl launch just made on the batch with these lengths; raises
+    unless the wrapper's table had that many items."""
+    from dynaalign_torch.ops import nw_cuda
+
+    strips = nw_cuda.xl_strips(a_len, b_len, nw_cuda.XL_STRIP)
+    items = int(strips.sum())
+    if nw_cuda.LAST_XL_ITEMS != items:
+        raise AssertionError(f"nw_gotoh_xl's table had "
+                             f"{nw_cuda.LAST_XL_ITEMS} items, not {items}")
+    return (f"{a_len.shape[0]} pairs, {items} queue items (strips of "
+            f"{nw_cuda.XL_STRIP} rows; {int((strips > 1).sum())} pairs of "
+            f"more than one, at most {int(strips.max())})")
 
 
 def _bound(cells, nbytes):
@@ -1270,6 +1305,7 @@ def main() -> int:
     from dynaalign_torch.io.datasets import load_sequences
     from dynaalign_torch.ops import _build, nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
+    from dynaalign_torch.tools import nw_variants
     from dynaalign_torch.tools import probe_misalign as probe
 
     t_start = time.perf_counter()
@@ -1283,13 +1319,31 @@ def main() -> int:
     print(f"nvidia-smi name, power.limit: {smi}")
 
     t0 = time.perf_counter()
+    # the schedule the queue of strips replaced, for phases 6, 7 and 9
+    list_order_wait = nw_variants.start_variant("nw_gotoh_xl", "XL_QUEUE=0")
     built = _build.build_all()
-    print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
-          "(one nvcc each, in parallel)")
-    for name, b in built.items():
-        for line in b.log.splitlines():
+    xl_list_lib, list_log = list_order_wait()
+    print(f"[2] built {sorted(built)} and nw_gotoh_xl XL_QUEUE=0 in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    for name, log in [*((n, b.log) for n, b in built.items()),
+                      ("nw_gotoh_xl XL_QUEUE=0", list_log)]:
+        for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+
+    def xl_turns(batch):
+        """nw_gotoh_xl's queue of strips (the tree's library) and its
+        list-order variant, one warp a pair, on a batch (a_idx, a_len,
+        b_idx, b_len) under BLOSUM62 and gaps (10, 4): the launch alone
+        (work table, scratch and outputs built before; the zeroing of the
+        counter and the kernel between the events), in turns.  Returns
+        ({schedule: best ms}, {schedule: result})."""
+        gos, outs = {}, {}
+        for label, lib in (("queue", _build.load("nw_gotoh_xl")),
+                           ("list order", xl_list_lib)):
+            gos[label], outs[label] = nw_cuda.prepare_xl(
+                lib, *batch, blosum.get_matrix(device=dev), 10, 4)
+        return _turns(gos)[0], outs
     from dynaalign_torch.cluster import _native as louvain_native
     from dynaalign_torch.consensus import _native as msa_native
 
@@ -1502,16 +1556,35 @@ def main() -> int:
           f"ms); {chunk_cells / kernel_ms * 1e3:.4e} cell updates/s")
     print(f"  plain version (correctness twin, not a yardstick), same chunk:"
           f" {plain_ms:.3f} ms")
-    # the one-warp-per-pair kernel on the same chunk, for comparison only:
-    # the main path routes these widths to nw_gotoh
-    xl_chunk_ms, xl_got = _event_ms(
-        lambda: nw_cuda.nw_similarity_batch_cuda_xl(*chunk, sub), repeat=3)
+    # the long-pair kernel on the same chunk, for comparison only: the main
+    # path routes these widths to nw_gotoh.  Its wrapper, three calls one
+    # after another, each by CUDA events (their mean is the reading of
+    # earlier runs); the wrapper's work table alone; then the launch alone,
+    # queue and list order in turns
+    xl_calls = []
+    for _ in range(3):
+        ms, xl_got = _event_ms(
+            lambda: nw_cuda.nw_similarity_batch_cuda_xl(*chunk, sub))
+        xl_calls.append(ms)
+    xl_chunk_ms = sum(xl_calls) / 3
     if not _equal(xl_got, first_ref):
         raise AssertionError("nw_gotoh_xl != plain on the first chunk")
-    print(f"  nw_gotoh_xl on the same chunk (comparison, not the main path):"
-          f" {xl_chunk_ms:.3f} ms = {bound_ms / xl_chunk_ms:.4f} of the "
+    print(f"  nw_gotoh_xl on the same chunk (comparison, not the main path),"
+          f" its wrapper by CUDA events, 3 calls: {xl_calls} ms, mean "
+          f"{xl_chunk_ms:.3f} ms = {bound_ms / xl_chunk_ms:.4f} of the "
           f"bound ({old_ms / xl_chunk_ms:.4f} of the older), "
-          f"{xl_chunk_ms / kernel_ms:.2f}x nw_gotoh's time; equal to plain")
+          f"{xl_chunk_ms / kernel_ms:.2f}x nw_gotoh's time; equal to plain; "
+          + _xl_table_text(chunk[1], chunk[3]))
+    table_ms, _ = _event_ms(lambda: nw_cuda.xl_work_table(
+        chunk[1], chunk[3], nw_cuda.XL_STRIP, nw_cuda.LAST_XL_ITEMS),
+        repeat=3)
+    chunk_turns, chunk_out = xl_turns(chunk)
+    if not (_equal(chunk_out["queue"], first_ref)
+            and _equal(chunk_out["list order"], first_ref)):
+        raise AssertionError("nw_gotoh_xl queue or list order != plain, "
+                             "first chunk")
+    print(f"  its work table alone: {table_ms:.3f} ms; the launch alone in "
+          f"turns, best ms: {chunk_turns}; both equal to plain")
     print("  library_ms: none (no single PyTorch call computes NW)")
     t0 = time.perf_counter()
     oracle.nw_similarity(h3n2[:24])
@@ -1580,7 +1653,8 @@ def main() -> int:
           f"of the bound ({all_old_ms / xl_all_ms:.4f} of the older bound, "
           f"{all_old_ms:.3f} ms); {lcells / xl_all_ms * 1e3:.4e} cell "
           f"updates/s; kernel / best wall = {xl_all_ms / 1e3 / lbest:.4f}; "
-          "kernel == similarity_nw on every pair")
+          "kernel == similarity_nw on every pair; "
+          + _xl_table_text(largs[1], largs[3]))
     # the plain version walks every fourth pair only (all of them took it
     # 42 s); the kernel is timed on the same pairs beside it
     qargs = _pair_batch(lidx, lln, *liu[:, ::4])
@@ -1600,6 +1674,36 @@ def main() -> int:
           f"{q_bound_ms / xl_quarter_ms:.4f} of the bound; plain "
           f"version on the card {xl_plain_ms:.3f} ms; kernel == plain == "
           "similarity_nw")
+    # the queue of strips against the list-order schedule it replaced, in
+    # turns, on the whole set, every fourth pair and the longest pair alone
+    top = int(torch.argmax(largs[1].long() * largs[3].long()))
+    one = [x[top : top + 1] for x in largs]
+    one_cells = float(one[1].double() * one[3].double())
+    sched = {}
+    for label, batch, ref in (("all pairs", largs, lgot),
+                              ("every fourth pair", qargs, qref),
+                              ("the longest pair", one, None)):
+        ms, outs = xl_turns(batch)
+        if ref is None:  # the longest pair: against similarity_nw's value
+            ref = outs["queue"]
+            if ref.similarity()[0] != lsims[liu_np[0][top], liu_np[1][top]]:
+                raise AssertionError("the longest pair != similarity_nw")
+        if not (_equal(outs["queue"], ref) and _equal(outs["list order"],
+                                                      ref)):
+            raise AssertionError(f"long set, {label}: queue and list order "
+                                 "differ")
+        sched[label] = ms
+        print(f"  {label}, the launch alone in turns, best ms: queue "
+              f"{ms['queue']:.3f}, list "
+              f"order {ms['list order']:.3f} "
+              f"({ms['list order'] / ms['queue']:.3f}x); equal; "
+              + _xl_table_text(batch[1], batch[3]))
+    top_bound_ms = _bound(one_cells, 0)[0]
+    print(f"  the longest pair alone ({int(one[1])} x {int(one[3])} aa, "
+          f"{one_cells:.4e} cells): its operations bound on the whole card "
+          f"{top_bound_ms:.4f} ms; its steps on one warp, list order: "
+          f"{-(-int(one[1]) // nw_cuda.XL_STRIP)} strips x "
+          f"{int(one[3]) + 31} steps")
     print(f"  serial C++ oracle, long set [:16, :16] (136 pairs): "
           f"{lor_s:.4f} s = {lor_rate:.4f} pairs/s; similarity_nw / oracle "
           f"= {lpairs / lbest / lor_rate:.2f}x (pairs/s; the block's pairs "
@@ -1634,6 +1738,7 @@ def main() -> int:
 
     print("[9] nw_rescore_pairs past every TPU ceiling")
     rng = np.random.default_rng(9)
+    rescore_ms = {}
     # the last: padded M + N = 80,000, MT and LN as two words
     for la, lb_ in ((13000, 13000), (12300, 17000), (300, 40000)):
         seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=k))
@@ -1652,6 +1757,26 @@ def main() -> int:
               f"{words} word(s)): "
               f"{nw_cuda.LAUNCHES_XL} nw_gotoh_xl launch(es), {r_s:.3f} s; "
               f"equal to the oracle pair by pair: {got.tolist()}")
+        # the kernel alone on the batch nw_rescore_pairs launched: all
+        # sequences padded to the longest, pairs (pi, pj)
+        renc = encode(seqs)
+        ridx = torch.from_numpy(renc.indices).to(dev)
+        rln = torch.from_numpy(renc.lengths).to(dev)
+        rargs = _pair_batch(ridx, rln, torch.from_numpy(pi).to(dev),
+                            torch.from_numpy(pj).to(dev))
+        ms, outs = xl_turns(rargs)
+        if not (np.array_equal(outs["queue"].similarity(), got)
+                and _equal(outs["list order"], outs["queue"])):
+            raise AssertionError(f"{la} x {lb_}: kernel alone != "
+                                 "nw_rescore_pairs")
+        rescore_ms[f"{la}x{lb_}"] = ms
+        rcells = 4.0 * la * lb_
+        print(f"    the launch alone in turns, best ms: queue "
+              f"{ms['queue']:.3f},"
+              f" list order {ms['list order']:.3f} "
+              f"({ms['list order'] / ms['queue']:.3f}x); bound "
+              f"{_bound(rcells, 0)[0]:.4f} ms ({rcells:.4e} cells); "
+              + _xl_table_text(rargs[1], rargs[3]))
 
     print("[10] shift probe (probe_shift)")
     clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
@@ -1734,9 +1859,17 @@ def main() -> int:
         "equal_to_plain": True,
         "max_abs_err": worst_xl,
         "timed_on": "the long set's one launch; the plain version and "
-                    "quarter_ms on every fourth pair of it",
+                    "quarter_ms on every fourth pair of it; schedule_ms: "
+                    "the queue and the list-order variant, the launch alone "
+                    "(table prebuilt) in turns (best); rescore_ms: phase 9's "
+                    "batches, likewise; h3n2_chunk_ms: phase 6's chunk, "
+                    "likewise; h3n2_chunk_wrapper_ms: its wrapper, 3 calls",
         "ms": xl_all_ms,
         "quarter_ms": xl_quarter_ms,
+        "schedule_ms": sched,
+        "rescore_ms": rescore_ms,
+        "h3n2_chunk_ms": chunk_turns,
+        "h3n2_chunk_wrapper_ms": xl_calls,
         "plain_ms": xl_plain_ms,
         "bound_ms": all_bound_ms,
         "bound_by": all_bound_by,

@@ -79,7 +79,33 @@
 // row (M, Ix, W: 2 + NWD planes of N+1 words) in a boundary row and lane 0
 // reads it back one column ahead; within a strip column c is read at step
 // c-1 and written at step c+G-1, so one buffer is safe, and __syncwarp()
-// orders strips.
+// orders strips.  That is nw_pair_sweep, which runs every strip of a pair
+// on one group.
+//
+// nw_strip_sweep runs one strip of a pair on a whole warp (G = 32), for
+// nw_gotoh_xl's queue of (pair, strip) items, so that strips of one pair
+// run on different warps, on different SMs, at once.  Strip s reads the
+// bottom row strip s-1 left in global memory while strip s-1 is still
+// writing it, chunk by chunk:
+// * A progress word per item, zeroed by the wrapper: after every G = 32
+//   steps, and at the strip's end, the last lane stores with release
+//   semantics the highest column it has written, after a __syncwarp() that
+//   orders lane 0's reads of the row above before it.
+// * Lane 0 of strip s, before the steps that read columns up to c, waits
+//   with acquire loads until item k-1 (strip s-1: a pair's strips are
+//   consecutive in the table) has published c, and then reads the row with
+//   __ldcg, which skips the SM's L1: another SM wrote it.  Only lane 0
+//   spins, and the warp meets at a __syncwarp() before its next shuffle.
+// * One boundary row a pair still suffices.  Strip s writes column c once,
+//   before strip s+1 reads it (s+1 waited for it); s+1 reads it at its
+//   step c-1 and overwrites it at step c+31, 32 steps later, so the
+//   __syncwarp() of a publication lies between; strip s+2 waits for s+1's
+//   word, so it reads s+1's value.  Nobody else reads the row.  A progress
+//   word per pair would not do: strip s+1 publishes while strip s still
+//   does, and a reader could see the wrong strip's column.
+// * A strip waits only on the item before it, which an earlier atomicAdd
+//   handed to a warp that is running; by induction every wait ends, with
+//   any grid, block order or residency.
 
 #ifndef DYNAALIGN_NW_CELL_CUH_
 #define DYNAALIGN_NW_CELL_CUH_
@@ -90,6 +116,19 @@
 #define NW_OPS_PER_CELL 12
 #define NW_ALU_OPS_PER_CELL 8
 #define NW_FULL 0xffffffffu
+
+#ifdef __CUDACC__
+// Progress words between strips of one pair on different SMs (the host
+// harness of tests/test_torch_harness.py defines both on std::atomic_ref).
+__device__ __forceinline__ int nw_load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void nw_store_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+#endif
 
 template <int NWD>
 struct NwPath {
@@ -162,8 +201,9 @@ __device__ __forceinline__ void nw_load_profile(const int* p, int (&q)[RW]) {
 }
 
 // One lane's share of a strip: its R rows' column j-1 values and what it
-// carries from step to step.
-template <int G, int R, int NWD>
+// carries from step to step.  XL: the boundary row lies in global memory
+// and another SM may have written it, so lane 0 reads it past L1.
+template <int G, int R, int NWD, bool XL = false>
 struct NwLane {
   static constexpr int RW = (R + 3) / 4;  // profile words per symbol
   int ac[R], cM[R], cIy[R];
@@ -174,6 +214,71 @@ struct NwLane {
   int bNext;  // the next column's b-character
   int nM, nIx;  // lane 0, later strips: the next column's boundary cell
   NwPath<NWD> nW;
+
+  // Lane 0, a later strip: column c of the boundary row, the cell above its
+  // first row.
+  __device__ __forceinline__ void load_next(const int* bnd, int bstride,
+                                            int c) {
+    if constexpr (XL) {
+      nM = __ldcg(bnd + c);
+      nIx = __ldcg(bnd + bstride + c);
+#pragma unroll
+      for (int w = 0; w < NWD; ++w) {
+        nW.w[w] = __ldcg(bnd + (2 + w) * bstride + c);
+      }
+    } else {
+      nM = bnd[c];
+      nIx = bnd[bstride + c];
+#pragma unroll
+      for (int w = 0; w < NWD; ++w) nW.w[w] = bnd[(2 + w) * bstride + c];
+    }
+  }
+
+  // The strip whose first row is r0 (busy: the group's pair has it): this
+  // lane's rows at column 0, the 'U' border, and its query profile.
+  // Returns Ix of the lane's first row at column 0.
+  __device__ __forceinline__ int begin(
+      bool busy, const int* __restrict__ a, const int* __restrict__ b, int m,
+      int r0, int gl, const int* __restrict__ sub_t, int* prof, int pstride,
+      int gap_open, int gap_ext) {
+    const int first = r0 + gl * R;  // this lane's first row
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = first + r;
+      ac[r] = (busy && i <= m) ? (a[i - 1] & (NW_SUB - 1)) : NW_SUB - 1;
+      // column 0 of row i, the 'U' border: M and Iy are the sentinel, the
+      // path is i gaps; its Ix is -gap_open - (i-1)*gap_ext
+      cM[r] = NW_NEG;
+      cIy[r] = NW_NEG;
+      cW[r] = nw_path<NWD>(0, i);
+    }
+    if (busy) {
+#pragma unroll 1
+      for (int c = 0; c < NW_SYMS; ++c) {
+#pragma unroll
+        for (int w = 0; w < RW; ++w) {
+          int word = 0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (4 * w + k < R) {
+              word |= (sub_t[c * NW_SUB + ac[4 * w + k]] & 0xff) << (8 * k);
+            }
+          }
+          prof[c * pstride + w] = word;
+        }
+      }
+    }
+    const int e_border = -gap_open - (first - 1) * gap_ext;  // Ix(first, 0)
+    // diagonal of the first row at column 1: cell (first-1, 0), the origin
+    // or a 'U' border cell
+    dBest = first == 1 ? 0 : e_border + gap_ext;
+    dW = nw_path<NWD>(0, first - 1);
+    xIx = NW_NEG;
+    bNext = (gl == 0 && busy) ? b[0] : 0;
+    nM = nIx = 0;
+    nW = nw_path<NWD>(0, 0);
+    return e_border;
+  }
 
   // Step k of a strip: this lane (gl of its group) works column k - gl of
   // the nn the pair has (0 for an idle group).  EDGE: some lane of the
@@ -210,14 +315,7 @@ struct NwLane {
         uIx = nIx;
         uBest = nM;
         uW = nW;
-        if (j < nn) {
-          nM = bnd[j + 1];
-          nIx = bnd[bstride + j + 1];
-#pragma unroll
-          for (int w = 0; w < NWD; ++w) {
-            nW.w[w] = bnd[(2 + w) * bstride + j + 1];
-          }
-        }
+        if (j < nn) load_next(bnd, bstride, j + 1);
       }
     }
     if (j >= 1 && j <= nn) {
@@ -307,47 +405,9 @@ __device__ __forceinline__ void nw_pair_sweep(
     const int nn = busy ? n : 0;
     const int first = r0 + gl * R;  // this lane's first row
     Lane s;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = first + r;
-      s.ac[r] = (busy && i <= m) ? (a[i - 1] & (NW_SUB - 1)) : NW_SUB - 1;
-      // column 0 of row i, the 'U' border: M and Iy are the sentinel, the
-      // path is i gaps; its Ix is -gap_open - (i-1)*gap_ext
-      s.cM[r] = NW_NEG;
-      s.cIy[r] = NW_NEG;
-      s.cW[r] = nw_path<NWD>(0, i);
-    }
-    if (busy) {
-#pragma unroll 1
-      for (int c = 0; c < NW_SYMS; ++c) {
-#pragma unroll
-        for (int w = 0; w < Lane::RW; ++w) {
-          int word = 0;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (4 * w + k < R) {
-              word |= (sub_t[c * NW_SUB + s.ac[4 * w + k]] & 0xff) << (8 * k);
-            }
-          }
-          prof[c * pstride + w] = word;
-        }
-      }
-    }
-    const int e_border = -gap_open - (first - 1) * gap_ext;  // Ix(first, 0)
-    // diagonal of the first row at column 1: cell (first-1, 0), the origin
-    // or a 'U' border cell
-    s.dBest = first == 1 ? 0 : e_border + gap_ext;
-    s.dW = nw_path<NWD>(0, first - 1);
-    s.xIx = NW_NEG;
-    s.bNext = (gl == 0 && busy) ? b[0] : 0;
-    s.nM = s.nIx = 0;
-    s.nW = nw_path<NWD>(0, 0);
-    if (gl == 0 && busy && r0 > 1) {
-      s.nM = bnd[1];
-      s.nIx = bnd[bstride + 1];
-#pragma unroll
-      for (int w = 0; w < NWD; ++w) s.nW.w[w] = bnd[(2 + w) * bstride + 1];
-    }
+    const int e_border = s.begin(busy, a, b, m, r0, gl, sub_t, prof, pstride,
+                                 gap_open, gap_ext);
+    if (gl == 0 && busy && r0 > 1) s.load_next(bnd, bstride, 1);
     const bool more = busy && r0 + G * R <= m;
     // lanes past the one holding row m have nothing to compute, and that
     // lane's last step is at column n
@@ -374,6 +434,94 @@ __device__ __forceinline__ void nw_pair_sweep(
       }
     }
     __syncwarp();
+  }
+}
+
+// Strip s of one pair on a whole warp (G = 32 lanes of R rows), one item of
+// nw_gotoh_xl's queue; every lane of the warp calls it.  a, b, m, n, sub_t,
+// prof, pstride, bnd, bstride as for nw_pair_sweep; strip s reads the
+// boundary row that strip s-1 writes, and writes its own over it.
+// progress: the item's progress word; progress[-1] is strip s-1's, which
+// this strip waits on (the wrapper's table keeps a pair's strips
+// consecutive and in order).  The strip waits and publishes every G steps
+// (no more, or the row above would be overwritten before it is read).
+template <int R, int NWD>
+__device__ __forceinline__ void nw_strip_sweep(
+    const int* __restrict__ a, const int* __restrict__ b, int m, int n, int s,
+    const int* __restrict__ sub_t, int gap_open, int gap_ext, int* prof,
+    int pstride, int* bnd, int bstride, int* progress, int* out_mt,
+    int* out_ln) {
+  constexpr int G = 32;
+  using Lane = NwLane<G, R, NWD, true>;
+  const int gl = threadIdx.x & 31;
+  const int r0 = 1 + s * G * R;  // the strip's first row
+  if (m == 0 || n == 0) {  // the path is one border gap; the table gives
+    if (s == 0 && gl == 0) {  // such a pair one item
+      *out_mt = 0;
+      *out_ln = m + n;
+    }
+    return;
+  }
+  if (r0 > m) return;  // no such strip (the wrapper makes none)
+  const bool more = r0 + G * R <= m;
+  Lane L;
+  const int e_border = L.begin(true, a, b, m, r0, gl, sub_t, prof, pstride,
+                               gap_open, gap_ext);
+  int seen = 0;  // lane 0: the column up to which strip s-1 has published
+  // lane 0 waits until strip s-1 has written bnd up to column need; the
+  // warp meets before its next shuffle
+  auto wait_for = [&](int need) {
+    if (s > 0) {
+      if (gl == 0 && need > seen) {
+        while ((seen = nw_load_acquire(progress - 1)) < need) __nanosleep(100);
+      }
+      __syncwarp();
+    }
+  };
+  // after step k1 the last lane has written bnd up to column k1 - (G - 1)
+  auto publish = [&](int k1) {
+    if (more) {
+      __syncwarp();  // lane 0's reads of bnd come before the word too
+      if (gl == G - 1) {
+        const int c = k1 - (G - 1);
+        nw_store_release(progress, c < n ? c : n);
+      }
+    }
+  };
+  // lanes past the one holding row m have nothing to compute, and that
+  // lane's last step is at column n
+  const int last = (m - r0) / R < G - 1 ? (m - r0) / R : G - 1;
+  const int steps = n + last;
+  // some lane sits at column 1 in the first G steps only; lane 0 reads
+  // column k + 1 at step k
+  const int edge_steps = steps < G ? steps : G;
+  wait_for(edge_steps + 1 < n ? edge_steps + 1 : n);
+  if (gl == 0 && s > 0) L.load_next(bnd, bstride, 1);
+  for (int k = 1; k <= edge_steps; ++k) {
+    L.template step<true>(k, gl, n, s == 0, more, b, prof, pstride, bnd,
+                          bstride, gap_open, gap_ext, e_border);
+  }
+  publish(edge_steps);
+  for (int k0 = G + 1; k0 <= steps; k0 += G) {
+    const int k1 = k0 + G - 1 < steps ? k0 + G - 1 : steps;
+    wait_for(k1 + 1 < n ? k1 + 1 : n);
+#pragma unroll 1
+    for (int k = k0; k <= k1; ++k) {
+      L.template step<false>(k, gl, n, s == 0, more, b, prof, pstride, bnd,
+                             bstride, gap_open, gap_ext, e_border);
+    }
+    publish(k1);
+  }
+  // the lane holding row m ended the strip at column n: the final cell
+  const int first = r0 + gl * R;
+  if (first <= m && m < first + R) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (first + r == m) {
+        *out_mt = nw_path_mt<NWD>(L.cW[r]);
+        *out_ln = nw_path_ln<NWD>(L.cW[r]);
+      }
+    }
   }
 }
 

@@ -18,13 +18,17 @@ from .nw import NEG_SENTINEL, NWResult, nw_similarity_batch  # noqa: F401
 from .nw_cuda import (
     MAX_MP1,
     SCRATCH_PLANES,
+    XL_ITEM_BYTES,
+    XL_PAIR_BYTES,
+    XL_STRIP,
     nw_similarity_batch_cuda,
     nw_similarity_batch_cuda_xl,
 )
 
 # Padded max(m, n)+1 up to MAX_MP1 goes to nw_gotoh (a group of lanes per
 # pair, boundary rows in shared memory).  Wider batches go to nw_gotoh_xl
-# (one warp per pair), the port of _kernel_xl, which has no upper limit.
+# (a queue of strips, one warp a strip), the port of _kernel_xl, which has
+# no upper limit.
 
 def pick_nw_backend(device, m: int, n: int) -> str:
     """``"torch"`` (the plain version) on the CPU; on a card ``"cuda"``
@@ -39,10 +43,14 @@ def pick_nw_backend(device, m: int, n: int) -> str:
 def pair_bytes(m: int, n: int) -> int:
     """Device bytes one pair of padded widths (m, n) takes in a launch: its
     gathered int32 inputs, lengths and outputs, plus the scratch of the
-    kernel that serves it."""
+    kernel that serves it; for nw_gotoh_xl also its share of the work table
+    at the most strips a pair of width m has."""
     kernel = {"cuda": "nw_gotoh", "cuda_xl": "nw_gotoh_xl"}[
         pick_nw_backend("cuda", m, n)]
-    return 4 * (m + n + 4) + 4 * SCRATCH_PLANES[kernel] * (n + 1)
+    scratch = 4 * SCRATCH_PLANES[kernel] * (n + 1)
+    if kernel == "nw_gotoh_xl":
+        scratch += XL_PAIR_BYTES + XL_ITEM_BYTES * -(-m // XL_STRIP)
+    return 4 * (m + n + 4) + scratch
 
 
 def nw_batch(

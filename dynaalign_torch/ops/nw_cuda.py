@@ -6,7 +6,9 @@ wrappers live too: same signature and result as the plain version
 :func:`dynaalign_torch.ops.nw.nw_similarity_batch`.  Each wrapper alone
 decides where a batch runs: a CUDA tensor always goes to its kernel, a CPU
 tensor to the plain version, anything else raises.  ``LAUNCHES`` and
-``LAUNCHES_XL`` count the two kernels' launches.
+``LAUNCHES_XL`` count the two kernels' launches.  ``nw_gotoh_xl`` takes its
+work from a table of (pair, strip) items, longest pair first, which
+:func:`xl_work_table` builds on the card.
 
 What the kernels take beyond the plain version's contract: substitution
 scores in [-128, 127] (they travel as int8), gap penalties in [0, 2**20]
@@ -32,6 +34,7 @@ LAUNCHES = 0  # nw_gotoh launches in this process; reset to 0 to count a run
 LAUNCHES_XL = 0  # nw_gotoh_xl launches, likewise
 
 LAST_INSTANCE = None  # the INSTANCES index of the last nw_gotoh launch
+LAST_XL_ITEMS = None  # work items (strips) of the last nw_gotoh_xl launch
 
 # Largest padded max(m, n)+1 that nw_gotoh takes: the range of the TPU
 # kernel it ports, the JAX package's PALLAS_MAX_MP1 (ops/nw_pallas.py).
@@ -44,6 +47,12 @@ MAX_SYMBOL = 24  # the 24-letter alphabet and PAD: the profile's NW_SYMS - 1
 # and the path as one word or as two (MT, LN), whichever its launcher takes
 # for the width: the wrapper allocates the larger.
 SCRATCH_PLANES = {"nw_gotoh": 0, "nw_gotoh_xl": 4}
+# Device bytes of one nw_gotoh_xl work item (one strip of a pair): its
+# (pair, strip) entry and its progress word, 12, and what xl_work_table
+# holds besides while it builds the entry, 12.  A pair also takes
+# XL_PAIR_BYTES there: its int64 sort key, order, strip count and offset.
+XL_ITEM_BYTES = 24
+XL_PAIR_BYTES = 32
 
 
 def _source(name: str) -> str:
@@ -64,11 +73,12 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # Pointers must be c_void_p: an undeclared int argument is passed as 32
 # bits and cuts the pointer.
 # nw_gotoh_xl: a_idx, a_len, b_idx, b_len, sub transposed, B, M, N,
-# gap_open, gap_ext, path words (0: the launcher picks by width), scratch,
-# out_mt, out_ln, stream
+# gap_open, gap_ext, path words (0: the launcher picks by width), work
+# table, its items, boundary rows, queue counter, progress words, out_mt,
+# out_ln, stream
 LAUNCH_ARGTYPES = (
     _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-    _INT, _VP, _VP, _VP, _VP,
+    _INT, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP,
 )
 # nw_gotoh: ..., gap_ext, instance, largest a_len, out_mt, out_ln, stream
 LAUNCH_ARGTYPES_NW = (
@@ -87,12 +97,100 @@ def pick_instance(a_max: int) -> int:
 
 
 @functools.cache
-def _launcher(name: str):
-    fn = getattr(_build.load(name), f"{name}_launch")
+def bind(lib: ctypes.CDLL, name: str):
+    """``lib``'s launch function of kernel ``name``, its argument types
+    declared."""
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = list(LAUNCH_ARGTYPES_NW if name == "nw_gotoh"
                        else LAUNCH_ARGTYPES)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    return _build.load(name)
+
+
+def xl_strips(a_len: torch.Tensor, b_len: torch.Tensor,
+              strip: int) -> torch.Tensor:
+    """int64 [B]: nw_gotoh_xl's work items for each pair, its
+    ceil(a_len / strip) strips of ``strip`` rows, or one for a pair without
+    cells (a_len or b_len 0), which writes the border result."""
+    return torch.where((a_len > 0) & (b_len > 0),
+                       (a_len.long() + strip - 1) // strip, 1)
+
+
+def xl_work_table(a_len: torch.Tensor, b_len: torch.Tensor, strip: int,
+                  n_items: int) -> torch.Tensor:
+    """nw_gotoh_xl's queue, int32 [n_items, 2] of (pair, strip): the pairs
+    by a_len * b_len descending, ties by index, each expanded into its
+    strips in order (:func:`xl_strips`).  ``n_items`` is the sum of
+    xl_strips, which the caller has fetched with its checks: tensors on the
+    card, no host sync here."""
+    cells = a_len.long() * b_len.long()
+    order = torch.argsort(cells, descending=True, stable=True)
+    strips = xl_strips(a_len, b_len, strip)[order]
+    pair = order.int().repeat_interleave(strips, output_size=n_items)
+    first = (strips.cumsum(0) - strips).int().repeat_interleave(
+        strips, output_size=n_items)
+    k = torch.arange(n_items, dtype=torch.int32, device=a_len.device)
+    return torch.stack([pair, k - first], 1)
+
+
+def prepare_xl(lib, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
+               nwd=0, n_items=None):
+    """Everything one launch of nw_gotoh_xl as built into ``lib`` (the
+    tree's library, or a variant of ``tools/nw_variants.py``) takes, on
+    checked CUDA tensors: its work table, scratch, queue counter and
+    progress words.  ``nwd``: 0 lets the launcher carry MT and LN in one word
+    or two by the width, 2 makes it two.  ``n_items``: the table's length,
+    fetched with the wrapper's checks; None fetches it here (one host
+    sync).  Returns (go, result): go() zeroes the counter and the progress
+    words and launches the kernel, which writes ``result``; it may be
+    called again, so a timing loop can time the launch alone."""
+    global LAST_XL_ITEMS
+    bsz, m = a_idx.shape
+    n = b_idx.shape[1]
+    dev = a_idx.device
+    strip = lib.nw_gotoh_xl_strip_rows()
+    if n_items is None:
+        n_items = int(xl_strips(a_len, b_len, strip).sum())
+    items = xl_work_table(a_len, b_len, strip, n_items)
+    scratch = torch.empty(SCRATCH_PLANES["nw_gotoh_xl"] * (n + 1) * bsz,
+                          dtype=torch.int32, device=dev)
+    # the queue counter, then a progress word per item, a 128-byte line on
+    sync = torch.empty(32 + n_items, dtype=torch.int32, device=dev)
+    out_mt = torch.empty(bsz, dtype=torch.int32, device=dev)
+    out_ln = torch.empty(bsz, dtype=torch.int32, device=dev)
+    sub_t = sub.t().contiguous()  # the kernels read the table as [b][a]
+    fn = bind(lib, "nw_gotoh_xl")
+    LAST_XL_ITEMS = n_items
+
+    def go():
+        sync.zero_()
+        with torch.cuda.device(dev):
+            rc = fn(a_idx.data_ptr(), a_len.data_ptr(), b_idx.data_ptr(),
+                    b_len.data_ptr(), sub_t.data_ptr(), bsz, m, n, gap_open,
+                    gap_ext, nwd, items.data_ptr(), n_items,
+                    scratch.data_ptr(), sync.data_ptr(),
+                    sync[32:].data_ptr(), out_mt.data_ptr(),
+                    out_ln.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"nw_gotoh_xl launch failed: CUDA error {rc}")
+
+    return go, NWResult(out_mt, out_ln)
+
+
+def launch_xl(lib, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
+              nwd=0, n_items=None) -> NWResult:
+    """Run nw_gotoh_xl as built into ``lib`` on checked CUDA tensors
+    (:func:`prepare_xl`, then the launch)."""
+    go, res = prepare_xl(lib, a_idx, a_len, b_idx, b_len, sub, gap_open,
+                         gap_ext, nwd, n_items)
+    go()
+    return res
 
 
 def _check_inputs(a_idx, a_len, b_idx, b_len, sub) -> None:
@@ -122,17 +220,22 @@ def _check_inputs(a_idx, a_len, b_idx, b_len, sub) -> None:
         raise ValueError(f"sub must be [32, 32], got {tuple(sub.shape)}")
 
 
-def _check_values(a_idx, a_len, b_idx, b_len, sub) -> int:
+def _check_values(a_idx, a_len, b_idx, b_len, sub,
+                  strip: int = 0) -> tuple[int, int]:
     """Raise unless 0 <= a_len <= M and 0 <= b_len <= N (the kernels read
     a[i-1] for i <= a_len and b[j-1] for j <= b_len unchecked), the scores
     fit int8 and the symbols lie in [0, MAX_SYMBOL], as the kernels carry
-    them.  Returns the largest a_len.  One host sync per call."""
+    them.  Returns the largest a_len and, for ``strip`` > 0, nw_gotoh_xl's
+    work items at that strip height (else 0).  One host sync per call."""
     m, n = a_idx.shape[1], b_idx.shape[1]
     ia, ib = a_idx.aminmax(), b_idx.aminmax()  # one pass over each
-    lo_a, hi_a, lo_b, hi_b, lo_s, hi_s, lo_i, hi_i = torch.stack(
-        [a_len.min(), a_len.max(), b_len.min(), b_len.max(), sub.min(),
-         sub.max(), torch.minimum(ia.min, ib.min),
-         torch.maximum(ia.max, ib.max)]
+    items = (xl_strips(a_len, b_len, strip).sum() if strip
+             else a_len.new_zeros(()))
+    lo_a, hi_a, lo_b, hi_b, lo_s, hi_s, lo_i, hi_i, n_items = torch.stack(
+        [x.long() for x in (
+            a_len.min(), a_len.max(), b_len.min(), b_len.max(), sub.min(),
+            sub.max(), torch.minimum(ia.min, ib.min),
+            torch.maximum(ia.max, ib.max), items)]
     ).tolist()
     if min(lo_a, lo_b) < 0 or hi_a > m or hi_b > n:
         raise ValueError(
@@ -144,7 +247,7 @@ def _check_values(a_idx, a_len, b_idx, b_len, sub) -> int:
     if lo_i < 0 or hi_i > MAX_SYMBOL:
         raise ValueError(f"alphabet indices must lie in [0, {MAX_SYMBOL}], "
                          f"got [{lo_i}, {hi_i}]")
-    return hi_a
+    return hi_a, n_items
 
 
 def _run(name, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
@@ -163,35 +266,35 @@ def _run(name, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
                          f"({gap_open}, {gap_ext})")
     bsz, m = a_idx.shape
     n = b_idx.shape[1]
-    a_max = _check_values(a_idx, a_len, b_idx, b_len, sub) if bsz else 0
+    xl = name == "nw_gotoh_xl" and dev.type == "cuda"
+    strip = _library(name).nw_gotoh_xl_strip_rows() if xl and bsz else 0
+    a_max, n_items = (_check_values(a_idx, a_len, b_idx, b_len, sub, strip)
+                      if bsz else (0, 0))
     if dev.type == "cpu":
         return nw_similarity_batch(
             a_idx, a_len, b_idx, b_len, sub,
             gap_open=gap_open, gap_ext=gap_ext,
         ), False
+    if bsz == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return NWResult(empty, empty.clone()), False
+    if xl:
+        return launch_xl(_library(name), a_idx, a_len, b_idx, b_len, sub,
+                         gap_open, gap_ext, xl_words, n_items), True
+    if max(m, n) + 1 > MAX_MP1:
+        raise ValueError(
+            f"nw_gotoh takes padded max(M, N)+1 <= {MAX_MP1}, got M={m}, "
+            f"N={n}; nw_similarity_batch_cuda_xl takes any width")
+    LAST_INSTANCE = pick_instance(a_max)
     out_mt = torch.empty(bsz, dtype=torch.int32, device=dev)
     out_ln = torch.empty(bsz, dtype=torch.int32, device=dev)
-    if bsz == 0:
-        return NWResult(out_mt, out_ln), False
-    if name == "nw_gotoh":
-        if max(m, n) + 1 > MAX_MP1:
-            raise ValueError(
-                f"nw_gotoh takes padded max(M, N)+1 <= {MAX_MP1}, got M={m}, "
-                f"N={n}; nw_similarity_batch_cuda_xl takes any width")
-        LAST_INSTANCE = pick_instance(a_max)
-        mid = (LAST_INSTANCE, a_max)
-    else:
-        scratch = torch.empty(SCRATCH_PLANES[name] * (n + 1) * bsz,
-                              dtype=torch.int32, device=dev)
-        mid = (xl_words, scratch.data_ptr())
-    launch = _launcher(name)
     sub_t = sub.t().contiguous()  # the kernels read the table as [b][a]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
+        rc = bind(_library(name), name)(
             a_idx.data_ptr(), a_len.data_ptr(), b_idx.data_ptr(),
             b_len.data_ptr(), sub_t.data_ptr(), bsz, m, n, gap_open, gap_ext,
-            *mid, out_mt.data_ptr(), out_ln.data_ptr(), stream,
+            LAST_INSTANCE, a_max, out_mt.data_ptr(), out_ln.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -228,9 +331,9 @@ def nw_similarity_batch_cuda_xl(
     gap_open: int = 10,
     gap_ext: int = 4,
 ) -> NWResult:
-    """(matches, alignment_length) per pair: through ``nw_gotoh_xl`` (one
-    warp per pair, for long pairs; any length) for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(matches, alignment_length) per pair: through ``nw_gotoh_xl`` (a
+    queue of strips, longest pair first, a warp a strip; for long pairs, any
+    length) for CUDA tensors, the plain version for CPU tensors."""
     global LAUNCHES_XL
     res, launched = _run("nw_gotoh_xl", a_idx, a_len, b_idx, b_len, sub,
                          gap_open, gap_ext)

@@ -5,8 +5,9 @@
 
 Each argument is one variant: ``-D`` definitions joined by commas
 (``nw_gotoh``: NW_BLOCKS_PER_SM, NW_THREADS;
-``nw_gotoh_xl``: XL_R, XL_WARPS).  The source as it stands is always the
-first variant.  Every variant is built with the flags of
+``nw_gotoh_xl``: XL_R, XL_WARPS, and XL_QUEUE=0 for the
+list-order schedule that the queue of strips replaced).  The source as it
+stands is always the first variant.  Every variant is built with the flags of
 :mod:`dynaalign_torch.ops._build` plus its definitions, run on the first
 launch of ``similarity_nw`` on h3n2sample[:1000] (131,072 pairs of up to
 566 aa) and on all pairs of the evp_peparray 12-mers (``nw_gotoh``) or of
@@ -31,23 +32,26 @@ from ..io.datasets import joined_h3n2, load_sequences
 from ..ops import _build, nw_cuda
 
 
-def build_variant(kernel: str, defines: str):
-    """(launcher, nvcc log) of ``kernel``.cu with ``defines`` ("A=1,B=2")."""
+def start_variant(kernel: str, defines: str):
+    """Start nvcc on ``kernel``.cu with ``defines`` ("A=1,B=2"); returns a
+    function that waits for it and returns (library, nvcc log), and raises
+    if the build failed.  Several may build at once."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     tag = "".join(c if c.isalnum() else "_" for c in defines) or "as_is"
     out = os.path.join(out_dir, f"{kernel}-{tag}.so")
     cmd = _build.nvcc_command(kernel, out)
     cmd += [f"-D{d}" for d in defines.split(",") if d]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {defines!r}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    fn = getattr(ctypes.CDLL(out), f"{kernel}_launch")
-    fn.argtypes = list(nw_cuda.LAUNCH_ARGTYPES_NW if kernel == "nw_gotoh"
-                       else nw_cuda.LAUNCH_ARGTYPES)
-    fn.restype = ctypes.c_int
-    return fn, proc.stdout + proc.stderr
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {defines!r}:\n{log}")
+        return ctypes.CDLL(out), log
+
+    return wait
 
 
 def all_pairs(seqs, dev, limit):
@@ -60,23 +64,22 @@ def all_pairs(seqs, dev, limit):
     return [idx[iu[0]], ln[iu[0]], idx[iu[1]], ln[iu[1]]]
 
 
-def launch(kernel, fn, batch, sub):
+def launch(kernel, lib, batch, sub):
+    """(matches, length) of ``batch`` through ``lib``'s ``kernel``, at gaps
+    (10, 4)."""
+    if kernel == "nw_gotoh_xl":
+        return tuple(nw_cuda.launch_xl(lib, *batch, sub, 10, 4))
     a, la, b, lb = batch
     bsz, m = a.shape
-    n = b.shape[1]
     mt = torch.empty(bsz, dtype=torch.int32, device=a.device)
     ln = torch.empty_like(mt)
-    if kernel == "nw_gotoh":
-        a_max = int(la.max())
-        mid = (nw_cuda.pick_instance(a_max), a_max)
-    else:
-        scratch = torch.empty(3 * (n + 1) * bsz, dtype=torch.int32,
-                              device=a.device)
-        mid = (1, scratch.data_ptr())  # MT and LN in one word
+    a_max = int(la.max())
     sub_t = sub.t().contiguous()  # the kernels read the table as [b][a]
-    rc = fn(a.data_ptr(), la.data_ptr(), b.data_ptr(), lb.data_ptr(),
-            sub_t.data_ptr(), bsz, m, n, 10, 4, *mid, mt.data_ptr(),
-            ln.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    rc = nw_cuda.bind(lib, kernel)(
+        a.data_ptr(), la.data_ptr(), b.data_ptr(), lb.data_ptr(),
+        sub_t.data_ptr(), bsz, m, b.shape[1], 10, 4,
+        nw_cuda.pick_instance(a_max), a_max, mt.data_ptr(), ln.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
     return mt, ln
@@ -115,10 +118,10 @@ def main(argv=None) -> int:
     else:
         batches["96 joins of h3n2sample proteins, all pairs"] = all_pairs(
             joined_h3n2(), dev, None)
-    built = {}
-    for defines in ["", *args.variants]:
-        name = defines or "as it stands"
-        built[name], log = build_variant(args.kernel, defines)
+    built, waits = {}, {d or "as it stands": start_variant(args.kernel, d)
+                        for d in ["", *args.variants]}
+    for name, wait in waits.items():
+        built[name], log = wait()
         lines = log.splitlines()
         for k, line in enumerate(lines):
             if "Compiling entry" in line:
@@ -129,12 +132,12 @@ def main(argv=None) -> int:
         ref = None
         best = dict.fromkeys(built, float("inf"))
         for _ in range(args.repeat):
-            for name, fn in built.items():
+            for name, lib in built.items():
                 got = None
 
                 def run():
                     nonlocal got
-                    got = launch(args.kernel, fn, batch, sub)
+                    got = launch(args.kernel, lib, batch, sub)
 
                 best[name] = min(best[name], event_ms(run))
                 ref = ref or got

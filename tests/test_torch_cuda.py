@@ -7,6 +7,10 @@ conftest.py would fail):
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -215,6 +219,123 @@ def test_nw_rescore_pairs_past_tpu_ceilings(cuda):
     got = nw_rescore_pairs(seqs, pi, pj)
     np.testing.assert_array_equal(
         got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
+
+
+def _skewed(dev, seed):
+    """One pair of 4 strips and two of 2 among 120 short pairs, with empty
+    sides: nw_gotoh_xl's queue runs the long pairs' strips on several
+    warps at once."""
+    rng = np.random.default_rng(seed)
+    strip = nw_cuda.XL_STRIP
+    a_lens = [3 * strip + 70, 0, strip + 5, 9, 2 * strip - 1, 0,
+              *rng.integers(1, 300, size=120)]
+    b_lens = [2900, 40, 1500, 0, 700, 0, *rng.integers(1, 300, size=120)]
+    ea = encode(["".join(rng.choice(list(ALPHABET[:20]), size=k))
+                 for k in a_lens])
+    eb = encode(["".join(rng.choice(list(ALPHABET[:20]), size=k))
+                 for k in b_lens])
+    return [torch.from_numpy(x).to(dev)
+            for x in (ea.indices, ea.lengths, eb.indices, eb.lengths)]
+
+
+@pytest.mark.parametrize("words", [0, 2])
+def test_xl_queue_skewed_batch_equals_plain(cuda, words):
+    """The queue of strips on a length-skewed batch, both instantiations
+    (0: the launcher's pick by width, one word here; 2: two words)."""
+    def xl(*args, gap_open, gap_ext):
+        return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
+                            xl_words=words)[0]
+
+    args = _skewed(cuda, 20)
+    _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda),
+                                wrapper=xl)
+    assert nw_cuda.LAST_XL_ITEMS == 4 + 1 + 2 + 1 + 2 + 1 + 120
+
+
+def test_xl_queue_repeated_launches_are_identical(cuda):
+    """20 launches of one skewed batch give one result, the plain
+    version's: a memory-ordering race between the strips of a pair would
+    show as drift from run to run."""
+    args = _skewed(cuda, 21)
+    sub = blosum.get_matrix("BLOSUM80", device=cuda)
+    ref = nw_similarity_batch(*args, sub, gap_open=12, gap_ext=2)
+    for _ in range(20):
+        got = nw_cuda.nw_similarity_batch_cuda_xl(*args, sub, gap_open=12,
+                                                  gap_ext=2)
+        assert torch.equal(got.matches, ref.matches)
+        assert torch.equal(got.length, ref.length)
+
+
+def test_nw_rescore_pairs_8000_equals_oracle(cuda):
+    """Two pairs of 8,000 x 8,000 aa: 13 strips each on as many warps."""
+    rng = np.random.default_rng(22)
+    seqs = ["".join(rng.choice(list(ALPHABET[:20]), size=8000))
+            for _ in range(4)]
+    pi, pj = np.array([0, 2]), np.array([1, 3])
+    nw_cuda.LAUNCHES_XL = 0
+    got = nw_rescore_pairs(seqs, pi, pj)
+    assert nw_cuda.LAUNCHES_XL == 1 and nw_cuda.LAST_XL_ITEMS == 2 * 13
+    np.testing.assert_array_equal(
+        got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
+
+
+_MEMCHECK_BATCH = """
+import numpy as np, torch
+from dynaalign_torch import blosum
+from dynaalign_torch.encode import encode
+from dynaalign_torch.ops import nw_cuda
+from dynaalign_torch.ops.nw import nw_similarity_batch
+dev, strip = torch.device("cuda"), nw_cuda.XL_STRIP
+rng = np.random.default_rng(4)
+lens = ([2 * strip + 70, 0, strip + 5, 9, 0, *rng.integers(1, 200, 20)],
+        [300, 40, 150, 0, 0, *rng.integers(1, 200, 20)])
+enc = [encode(["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=k))
+               for k in ls]) for ls in lens]
+args = [torch.from_numpy(x).to(dev) for e in enc for x in (e.indices,
+                                                           e.lengths)]
+sub = blosum.get_matrix(device=dev)
+ref = nw_similarity_batch(*args, sub)
+for words in (0, 2):
+    got = nw_cuda._run("nw_gotoh_xl", *args, sub, 10, 4, xl_words=words)[0]
+    print("words", words, "equal", torch.equal(got.matches, ref.matches)
+          and torch.equal(got.length, ref.length))
+"""
+
+
+def _memcheck(tool, script):
+    """(exit code, output) of ``script`` under compute-sanitizer's memcheck,
+    with the repository on the path."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [tool, "--tool", "memcheck", "--error-exitcode", "3",
+         sys.executable, str(script)],
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=root))
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def test_xl_queue_under_memcheck(cuda, tmp_path):
+    """compute-sanitizer's memcheck, where the toolkit has it and it can
+    instrument a CUDA program here, on a small skewed batch through both
+    instantiations: no out-of-bounds or misaligned access in the queue, its
+    table or the boundary rows."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "compute-sanitizer")
+    if not os.path.exists(tool):
+        pytest.skip("compute-sanitizer is not in the CUDA toolkit here")
+    probe = tmp_path / "memcheck_probe.py"
+    probe.write_text("import torch\n"
+                     "print(int(torch.ones(4, device='cuda').sum()))\n")
+    rc, out = _memcheck(tool, probe)
+    if rc != 0:  # the tool cannot run any CUDA program on this machine
+        pytest.skip("compute-sanitizer fails on a program that only copies "
+                    f"4 floats to the card: {out.strip()[-300:]}")
+    script = tmp_path / "memcheck_batch.py"
+    script.write_text(_MEMCHECK_BATCH)
+    rc, out = _memcheck(tool, script)
+    assert rc == 0, out[-4000:]
+    assert "ERROR SUMMARY: 0 errors" in out
+    assert out.count("equal True") == 2
 
 
 @pytest.mark.parametrize("kind", ["base", "shfl", "mis"])

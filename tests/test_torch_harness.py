@@ -9,9 +9,14 @@ per-warp array between barrier waits (two arrays used in turn, so one wait
 per shuffle suffices), within segments of ``width`` lanes as on the card.
 Hopper's DPX intrinsics and ``__dp4a`` are defined from their documented
 meaning; dynamic shared memory is a buffer that ``launch`` fills with a
-pattern before each block, so that no block finds another's values.  This
-checks a kernel's arithmetic and its warp hand-offs here, where no nvcc
-exists.  The kernel tests use it from ``tests/test_torch_nw.py``,
+pattern before each block, so that no block finds another's values.
+``atomicAdd``, ``__threadfence``, ``__ldcg``, ``__nanosleep`` (a yield) and
+the progress-word helpers of ``csrc/nw_cell.cuh`` (``nw_load_acquire``,
+``nw_store_release``) are defined on ``std::atomic_ref`` and the C++ memory
+model, so that warps of one block that wait on each other really run at
+once; ``atomicAdd`` also logs which warp got which old value.  This checks
+a kernel's arithmetic, its warp hand-offs and its waits here, where no
+nvcc exists.  The kernel tests use it from ``tests/test_torch_nw.py``,
 ``tests/test_torch_xl.py`` and ``tests/test_torch_probe.py``.
 """
 
@@ -26,9 +31,12 @@ pytest.importorskip("torch")
 from dynaalign_torch.ops import _build  # noqa: E402
 
 HARNESS = r"""
+#include <atomic>
 #include <barrier>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -48,6 +56,8 @@ static std::barrier<>* block_bar;
 static std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
 static std::vector<int> shfl_buf;  // [warp][2][32]
 static thread_local int shfl_turn;
+static std::mutex add_mu;
+static std::vector<std::pair<int, int>> add_log;  // (old value, warp)
 inline int warp() { return threadIdx.x / 32; }
 inline int lane() { return threadIdx.x % 32; }
 
@@ -58,6 +68,7 @@ template <class F>
 void launch(int blocks, int threads, F body, int* dyn = nullptr,
             size_t dyn_words = 0) {
   blockDim.x = threads;
+  add_log.clear();
   for (int b = 0; b < blocks; ++b) {
     blockIdx.x = b;
     for (size_t k = 0; k < dyn_words; ++k) dyn[k] = 0x5a5a0000 + 977 * b;
@@ -112,22 +123,69 @@ inline int __dp4a(int a, int b, int c) {
     c += (int)(signed char)(a >> (8 * k)) * (int)(signed char)(b >> (8 * k));
   return c;
 }
+// Device-wide atomics and ordering: CUDA's atomicAdd is relaxed; a fence is
+// a sequentially consistent fence; ld.acquire.gpu / st.release.gpu are
+// acquire loads and release stores.  __ldcg is a plain load, so that a race
+// stays a race for a thread sanitizer.
+inline int atomicAdd(int* p, int v) {
+  const int old = std::atomic_ref<int>(*p).fetch_add(
+      v, std::memory_order_relaxed);
+  std::lock_guard<std::mutex> hold(harness::add_mu);
+  harness::add_log.emplace_back(
+      old, (int)(blockIdx.x * (blockDim.x / 32)) + harness::warp());
+  return old;
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline int __ldcg(const int* p) { return *p; }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline int nw_load_acquire(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p)).load(
+      std::memory_order_acquire);
+}
+inline void nw_store_release(int* p, int v) {
+  std::atomic_ref<int>(*p).store(v, std::memory_order_release);
+}
+// the atomicAdd log of the last launch: out[2i] = old value, out[2i + 1] =
+// the warp (block * warps a block + warp); returns its length
+extern "C" int harness_adds(int* out, int cap) {
+  const int n = (int)harness::add_log.size();
+  for (int i = 0; i < n && i < cap; ++i) {
+    out[2 * i] = harness::add_log[i].first;
+    out[2 * i + 1] = harness::add_log[i].second;
+  }
+  return n;
+}
 """
 
 
-def build_host(tmp_dir, name: str, shim: str) -> ctypes.CDLL:
+def build_host(tmp_dir, name: str, shim: str,
+               flags: tuple = ()) -> ctypes.CDLL:
     """Compile HARNESS + ``shim`` (which includes a csrc source) with g++
-    into a library under ``tmp_dir``."""
+    and ``flags`` into a library under ``tmp_dir``.  -fno-gnu-unique: each
+    library keeps its own statics of template functions (a kernel's
+    __shared__ arrays), also beside a build of the same source with other
+    sizes in one process."""
     src = tmp_dir / f"{name}.cpp"
     src.write_text(HARNESS + shim)
     so = tmp_dir / f"lib{name}.so"
     subprocess.run(
         ["g++", "-std=c++20", "-pthread", "-O2", "-shared", "-fPIC", "-Wall",
-         "-Werror", "-Wno-unknown-pragmas", "-I", _build.CSRC, str(src),
-         "-o", str(so)],
+         "-Werror", "-Wno-unknown-pragmas", "-fno-gnu-unique", *flags, "-I",
+         _build.CSRC, str(src), "-o", str(so)],
         check=True,
     )
     return ctypes.CDLL(str(so))
+
+
+def atomic_log(lib) -> np.ndarray:
+    """[n, 2] (old value, warp) of every atomicAdd of ``lib``'s last
+    launch, in the order they ran."""
+    fn = lib.harness_adds
+    out = np.zeros(2 * fn(ptr(np.zeros(0, np.int32)), 0), np.int32)
+    fn(ptr(out), out.size // 2)
+    return out.reshape(-1, 2)
 
 
 def ptr(x: np.ndarray):
@@ -187,6 +245,44 @@ extern "C" void width_run(int blocks, int threads, int* out) {
 int self_dyn[64];
 extern "C" void dyn_run(int blocks, int* out) {
   harness::launch(blocks, 64, [&] { dyn_kernel(out); }, self_dyn, 64);
+}
+// Warp 0 writes data[0, n) and publishes it, warp 1 waits for that and
+// reads it back into out: mode 0 through nw_store_release/nw_load_acquire,
+// mode 1 through __threadfence and atomicAdd on the flag.  Then every
+// thread of the block takes `tickets` tickets from *ticket.
+__global__ void order_kernel(int* data, int* flag, int* out, int n, int mode,
+                             int* ticket, int tickets) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  if (w == 0) {
+    for (int i = l; i < n; i += 32) data[i] = 1000 + 7 * i;
+    __syncwarp();
+    if (l == 0) {
+      if (mode == 0) {
+        nw_store_release(flag, 1);
+      } else {
+        __threadfence();
+        atomicAdd(flag, 1);
+      }
+    }
+  } else if (w == 1) {
+    if (l == 0) {
+      if (mode == 0) {
+        while (nw_load_acquire(flag) < 1) __nanosleep(32);
+      } else {
+        while (atomicAdd(flag, 0) < 1) __nanosleep(32);
+        __threadfence();
+      }
+    }
+    __syncwarp();
+    for (int i = l; i < n; i += 32) out[i] = __ldcg(data + i);
+  }
+  for (int t = 0; t < tickets; ++t) atomicAdd(ticket, 1);
+}
+extern "C" void order_run(int threads, int* data, int* flag, int* out, int n,
+                          int mode, int* ticket, int tickets) {
+  harness::launch(1, threads, [&] {
+    order_kernel(data, flag, out, n, mode, ticket, tickets);
+  });
 }
 extern "C" void dpx_run(int n, const int* a, const int* b, const int* c,
                         int* out) {
@@ -276,3 +372,43 @@ def test_harness_dpx_and_dp4a(tmp_path):
     dot = sum(a.view(np.int8)[k::4].astype(np.int64)
               * b.view(np.int8)[k::4].astype(np.int64) for k in range(4))
     np.testing.assert_array_equal(out[:, 3], c64 + dot)
+
+
+ORDER_MODES = ["release/acquire", "threadfence/atomicAdd"]
+
+
+@pytest.mark.parametrize("mode", ORDER_MODES)
+def test_harness_orders_a_producer_warp_before_a_consumer_warp(tmp_path,
+                                                               mode):
+    """Warp 1 waits on warp 0's flag, then reads what warp 0 wrote before
+    it: through the progress-word helpers of csrc/nw_cell.cuh, or through
+    __threadfence and atomicAdd.  It never reads ahead of the producer
+    (it would find the -1 fill)."""
+    fn = build_host(tmp_path, "self", _SELF_SHIM).order_run
+    fn.restype = None
+    n = 4096
+    for _ in range(3):
+        data = np.full(n, -1, np.int32)
+        out = np.full(n, -2, np.int32)
+        flag, ticket = np.zeros(1, np.int32), np.zeros(1, np.int32)
+        fn(64, ptr(data), ptr(flag), ptr(out), n, ORDER_MODES.index(mode),
+           ptr(ticket), 0)
+        np.testing.assert_array_equal(out, 1000 + 7 * np.arange(n))
+
+
+def test_harness_atomic_add_hands_out_distinct_tickets(tmp_path):
+    """128 threads of 4 warps draw 50 tickets each from one counter: every
+    value once, and the log records 32 * 50 draws for each warp."""
+    lib = build_host(tmp_path, "self", _SELF_SHIM)
+    fn = lib.order_run
+    fn.restype = None
+    threads, tickets = 128, 50
+    data, out = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    flag, ticket = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    fn(threads, ptr(data), ptr(flag), ptr(out), 0, 0, ptr(ticket), tickets)
+    assert ticket[0] == threads * tickets
+    log = atomic_log(lib)
+    np.testing.assert_array_equal(np.sort(log[:, 0]),
+                                  np.arange(threads * tickets))
+    np.testing.assert_array_equal(np.bincount(log[:, 1]),
+                                  [32 * tickets] * (threads // 32))

@@ -446,11 +446,13 @@ def test_wrapper_rejects_other_devices():
 
 def test_launch_pointers_are_void_p():
     """ctypes passes an undeclared int as 32 bits and cuts a pointer."""
-    types = nw_cuda.LAUNCH_ARGTYPES  # nw_gotoh_xl: path words, then scratch
-    assert len(types) == 15
-    for i in (0, 1, 2, 3, 4, 11, 12, 13, 14):
+    # nw_gotoh_xl: path words, the work table and its length, scratch,
+    # queue counter, progress words, outputs, stream
+    types = nw_cuda.LAUNCH_ARGTYPES
+    assert len(types) == 19
+    for i in (0, 1, 2, 3, 4, 11, 13, 14, 15, 16, 17, 18):
         assert types[i] is ctypes.c_void_p
-    for i in range(5, 11):
+    for i in (*range(5, 11), 12):
         assert types[i] is ctypes.c_int
     types = nw_cuda.LAUNCH_ARGTYPES_NW  # nw_gotoh: instance, a_max, no scratch
     assert len(types) == 15
