@@ -6,8 +6,7 @@
 Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
-     started together, with nw_gotoh_xl's list-order variant XL_QUEUE=0 of
-     tools/nw_variants.py beside them) and the three C++ libraries (g++),
+     started together) and the three C++ libraries (g++),
      printing the ptxas register/shared-memory/spill lines and, for the
      step loop of both NW kernels, the SASS instructions per DP cell and
      whether the DPX opcodes are in its mix;
@@ -28,14 +27,13 @@ Phases (any failure raises; the exit code is then non-zero):
      kernel, held equal to the main path's result, and the first chunk
      through the plain version too; the kernel on that chunk beside its
      bound, and nw_gotoh_xl on the same chunk (its wrapper call by call,
-     its work table, and the launch alone, queue and list order in turns);
+     its work table, and the launch alone);
      the serial oracle's rate;
   7. the long path: similarity_nw on 96 joins of h3n2sample proteins
      (624-5,094 aa, 4,656 pairs) through nw_gotoh_xl alone, against the
      oracle on two 16x16 blocks, the kernel on every pair and the plain
      version on every fourth, timed beside its bound and the oracle's rate;
-     nw_gotoh_xl's queue of strips timed in turns with its list-order
-     variant (the launch alone, table prebuilt) on the whole set, on every
+     nw_gotoh_xl's launch alone (table prebuilt) on the whole set, on every
      fourth pair and on the longest pair alone (the critical path), with
      each launch's pairs and items;
   8. similarity_nw_bucketed on a mixed set (12-mers, HA, 2-3 HA joined)
@@ -43,7 +41,7 @@ Phases (any failure raises; the exit code is then non-zero):
   9. nw_rescore_pairs past every TPU ceiling (13,000 x 13,000 and
      12,300 x 17,000 aa, and 300 x 40,000 aa through nw_gotoh_xl's two-word
      instantiation) against the oracle, and the launch alone on each batch
-     (table prebuilt) by CUDA events, queue and list order in turns;
+     (table prebuilt) by CUDA events;
  10. the shift probe: every kind against its plain version, ns per step
      and the marginals of the shuffle and the shifted load;
  11. MinHash: similarity_mh on the 641 evp_peparray 12-mers (k=2,
@@ -93,7 +91,17 @@ Phases (any failure raises; the exit code is then non-zero):
      phases 5, 7, 8, 11, 12 and 14 byte for byte; each run prints its wall
      and gather seconds, the planners' per-rank split, the NW pairs and the
      launches of each NW kernel per rank.  A rank that exits non-zero or a
-     world that outlives its timeout fails the phase.
+     world that outlives its timeout fails the phase;
+ 17. acceptance: tests/test_golden.py's values (mt19937, murmur3, MinHash,
+     NW) and tests/test_integration_real_data.py's studies on the card, at
+     their sizes and thresholds: NW on h3n2sample[:12] and MH on
+     evp_peparray[:200] bit-exact against the oracle, MH/NW correlation in
+     three regimes over 10 seeds, the Mantel test, consensus column
+     agreement, clusterbreak's ARI against the H3N2 clades (card equal to
+     CPU); the Louvain/networkx study is left out (no networkx there); the
+     Pearson r of MH against phase 5's NW matrices (printed only); then
+     examples/getting_started_torch.py --no-plots on the card and with
+     --device cpu, each timed, their printed lines equal.
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -103,9 +111,13 @@ rank of phase 16, which the script starts itself.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import importlib.util
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -338,15 +350,14 @@ def _event_ms(fn, repeat=1):
     return start.elapsed_time(stop) / repeat, out
 
 
-def _turns(fns, rounds=2):
-    """({name: best ms}, {name: last result}) of the calls in ``fns``, each
-    timed alone by CUDA events, in turns a b b a, ``rounds`` times."""
-    best, out = {}, {}
-    for _ in range(rounds):
-        for name in [*fns, *reversed(fns)]:
-            ms, out[name] = _event_ms(fns[name])
-            best[name] = min(best.get(name, ms), ms)
-    return best, out
+def _best_ms(fn, calls=4):
+    """(best ms, the last result) of ``calls`` calls of ``fn``, each timed
+    alone by CUDA events."""
+    times = []
+    for _ in range(calls):
+        ms, out = _event_ms(fn)
+        times.append(ms)
+    return min(times), out
 
 
 def _xl_table_text(a_len, b_len) -> str:
@@ -1292,6 +1303,261 @@ def phase_parallel(refs, allunique) -> dict[str, list]:
               "(top-k of allunique[:8192]: minhash_topk here)")
     return launches
 
+# the regimes of tests/test_integration_real_data.py's correlation study:
+# (dataset, limit, k, n_hash, median r above, every seed's r above)
+CORRELATION_REGIMES = [
+    ("h3n2sample", 30, 4, 200, 0.60, 0.50),
+    ("evp_peparray", 120, 4, 200, 0.30, 0.20),
+    ("evp_peparray", 120, 2, 50, 0.55, 0.45),
+]
+EXAMPLE = os.path.join(ROOT, "examples", "getting_started_torch.py")
+
+
+def _ari(a, b) -> float:
+    """Adjusted Rand index of two labelings."""
+    a, b = np.asarray(a), np.asarray(b)
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    ct = np.zeros((ia.max() + 1, ib.max() + 1), dtype=np.int64)
+    np.add.at(ct, (ia, ib), 1)
+
+    def comb(x):
+        return x * (x - 1) / 2
+
+    sum_ij = comb(ct).sum()
+    sum_a = comb(ct.sum(1)).sum()
+    sum_b = comb(ct.sum(0)).sum()
+    exp = sum_a * sum_b / comb(len(a))
+    mx = (sum_a + sum_b) / 2
+    return (sum_ij - exp) / (mx - exp) if mx != exp else 1.0
+
+
+def _pearson(mh, nw) -> float:
+    """Pearson r of two similarity matrices over the strict upper
+    triangle."""
+    iu = np.triu_indices(len(mh), k=1)
+    return float(np.corrcoef(mh[iu], nw[iu])[0, 1])
+
+
+def _unclocked(text: str) -> list[str]:
+    """Printed lines with clusterbreak's [HH:MM:SS] stamps taken out."""
+    return [re.sub(r"^\[\d\d:\d\d:\d\d\] ", "[time] ", line)
+            for line in text.splitlines()]
+
+
+def _run_example(*argv) -> tuple[float, list[str]]:
+    """(wall seconds, printed lines) of examples/getting_started_torch.py
+    run from the repository root."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, EXAMPLE, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    return wall, _unclocked(proc.stdout)
+
+
+def _goldens() -> None:
+    """tests/test_golden.py's values, on the card."""
+    from dynaalign_torch import oracle, similarity_mh, similarity_nw
+    from dynaalign_torch.ops.murmur3 import murmur3_kmer_hashes, seeds_tensor
+    from dynaalign_torch.utils import hash_family_seeds
+
+    if hash_family_seeds(3, 0).tolist() != [2357136044, 2546248239,
+                                            3071714933]:
+        raise AssertionError("mt19937(0) golden")
+    for key, seed, want in ((b"abcd", 0, 0x43ED676A),
+                            (b"Hello, world!", 1234, 0xFAF6CDB3)):
+        bits = murmur3_kmer_hashes(
+            torch.tensor([list(key)], dtype=torch.uint8, device="cuda"),
+            len(key), seeds_tensor(np.array([seed], np.uint32), "cuda"))
+        if int(bits.cpu().numpy().view(np.uint32)[0, 0, 0]) != want:
+            raise AssertionError(f"murmur3 golden {key!r} on the card")
+    seqs = ["ARNDCQEG", "ARNDCQEG", "ARNDCEGQ", "WWWWYYYY"]
+    mh = similarity_mh(seqs, k=2, n_hash=20, seed=42)
+    if not (np.array_equal(mh[0], mh[1]) and mh[0, 1] == 1.0
+            and 0.3 < mh[0, 2] < 1.0 and mh[0, 3] == 0.0
+            and (mh * 20 == np.round(mh * 20)).all()
+            and np.array_equal(mh, oracle.minhash_similarity(seqs, 2, 20,
+                                                             42))):
+        raise AssertionError(f"MinHash golden on the card: {mh}")
+    nw = similarity_nw(["AAAA", "AAAA", "AAGA", "AAAAAA"])
+    if not (nw[0, 1] == 1.0 and nw[0, 2] == 0.75
+            and np.isclose(nw[0, 3], 4 / 6, rtol=1e-7, atol=0)):
+        raise AssertionError(f"NW golden on the card: {nw}")
+    if similarity_nw(["WAAAW", "WAW"])[0, 1] != oracle.nw_pair("WAAAW",
+                                                               "WAW"):
+        raise AssertionError("NW gap-asymmetry golden on the card")
+    print("  goldens of tests/test_golden.py on the card: mt19937(0) seeds, "
+          "murmur3 vectors (tensor hash), MinHash (k=2, n_hash=20, seed "
+          f"42: {mh[0].tolist()}), NW (1.0, 0.75, 4/6) and the gap "
+          "asymmetry: held")
+
+
+def phase_studies(h3n2, sims, evp_all, evp_nw) -> None:
+    """[17] tests/test_integration_real_data.py's studies on the card at
+    their sizes and thresholds, and tests/test_golden.py's values; the
+    Pearson r of MH against exact NW at sizes only the card reaches
+    (printed, not held); examples/getting_started_torch.py on the card and
+    with --device cpu, their printed lines equal."""
+    from dynaalign_torch import (
+        cluster_consensus, clusterbreak, consensus_sequence, oracle,
+        progressive_msa, similarity_mh, similarity_nw,
+    )
+    from dynaalign_torch.io.datasets import load_dataset, load_sequences
+    from dynaalign_torch.ops import nw_cuda
+
+    print("[17] acceptance studies on real data, goldens and the "
+          "getting-started example")
+    t_phase = time.perf_counter()
+    _goldens()
+
+    seqs = h3n2[:12]
+    nw_cuda.LAUNCHES = 0
+    got = similarity_nw(seqs)
+    if nw_cuda.LAUNCHES == 0 or not np.array_equal(
+            got, oracle.nw_similarity(seqs)):
+        raise AssertionError("NW on h3n2sample[:12] != oracle")
+    print(f"  similarity_nw, h3n2sample[:12]: {nw_cuda.LAUNCHES} nw_gotoh "
+          "launch(es), bit-exact vs the oracle")
+    seqs = evp_all[:200]
+    if not np.array_equal(similarity_mh(seqs, k=2, n_hash=50, seed=0),
+                          oracle.minhash_similarity(seqs, 2, 50, 0)):
+        raise AssertionError("MH on evp_peparray[:200] != oracle")
+    print("  similarity_mh, evp_peparray[:200], k=2 n_hash=50 seed 0: "
+          "bit-exact vs the oracle")
+
+    nw_h30 = None
+    for dataset, limit, k, n_hash, r_med, r_min in CORRELATION_REGIMES:
+        seqs = load_sequences(dataset, limit=limit)
+        nw = oracle.nw_similarity(seqs)
+        if not np.array_equal(similarity_nw(seqs), nw):
+            raise AssertionError(f"NW on {dataset}[:{limit}] != oracle")
+        rs = []
+        for seed in range(10):
+            mh = similarity_mh(seqs, k=k, n_hash=n_hash, seed=seed)
+            if seed == 0 and not np.array_equal(
+                    mh, oracle.minhash_similarity(seqs, k, n_hash, 0)):
+                raise AssertionError(f"MH on {dataset}[:{limit}] != oracle")
+            rs.append(_pearson(mh, nw))
+        med, worst = float(np.median(rs)), min(rs)
+        if not (med > r_med and worst > r_min):
+            raise AssertionError(f"{dataset}[:{limit}] k={k} n_hash="
+                                 f"{n_hash}: median r {med}, worst {worst}")
+        print(f"  MH/NW correlation, {dataset}[:{limit}], k={k} n_hash="
+              f"{n_hash}, seeds 0-9 (NW on the card == oracle, MH seed 0 "
+              f"== oracle): median r {med:.4f} > {r_med}, worst "
+              f"{worst:.4f} > {r_min}; r {[round(r, 4) for r in rs]}")
+        if dataset == "h3n2sample":
+            nw_h30 = nw
+
+    seqs = load_sequences("h3n2sample", limit=30)
+    n = len(seqs)
+    mh = similarity_mh(seqs, k=4, n_hash=200, seed=0)
+    iu = np.triu_indices(n, k=1)
+    r_obs = _pearson(mh, nw_h30)
+    rng = np.random.default_rng(0)
+    hits = 0
+    for _ in range(499):
+        p = rng.permutation(n)
+        hits += np.corrcoef(mh[np.ix_(p, p)][iu], nw_h30[iu])[0, 1] >= r_obs
+    p_val = (hits + 1) / 500
+    if p_val > 0.01:
+        raise AssertionError(f"Mantel p-value {p_val} (r {r_obs})")
+    print(f"  Mantel test, h3n2sample[:30], 499 joint permutations: r "
+          f"{r_obs:.4f}, p {p_val:.4f} <= 0.01")
+
+    seqs = load_sequences("h3n2sample", limit=24)
+    same = cluster_consensus(np.array([(seqs[0], "1")] * 5, dtype=object))
+    aligned = progressive_msa(seqs[:12])
+    cons = consensus_sequence(aligned)
+    cols = np.array([list(s) for s in aligned])
+    agree = 0
+    for c in range(cols.shape[1]):
+        vals, counts = np.unique(cols[:, c], return_counts=True)
+        maj = vals[np.argmax(counts)]
+        agree += bool(cons[c] == maj or (
+            cons[c] in "BZJX" and maj in "ARNDCQEGHILKMFPSTWYV"))
+    frac = agree / cols.shape[1]
+    if same[0, 1] != seqs[0] or cols.shape[1] <= 500 or frac < 0.95:
+        raise AssertionError(f"consensus: {cols.shape[1]} columns, "
+                             f"agreement {frac}")
+    print(f"  consensus, h3n2sample[:12]: {agree} of {cols.shape[1]} "
+          f"columns agree with the column majority ({frac:.4f} >= 0.95); "
+          "a cluster of 5 identical rows gives the row")
+    print("  Louvain against networkx: left out (networkx is no dependency "
+          "of the port and the card's machine has none; Louvain is host "
+          "code, held to networkx on the CPU by "
+          "tests/test_torch_integration_real_data.py)")
+
+    cols = load_dataset("h3n2sample")
+    clades = np.asarray(cols["clade"])
+    seqs_all = np.asarray(cols["sequence"])
+    rng = np.random.default_rng(0)
+    keep = []
+    for clade in np.unique(clades):
+        idx = np.nonzero(clades == clade)[0]
+        keep.extend(rng.choice(idx, size=min(len(idx), 25), replace=False))
+    keep = np.array(sorted(keep))
+    seen = {}
+    for s, lab in zip(seqs_all[keep], clades[keep]):
+        seen.setdefault(str(s), lab)
+    seqs = list(seen)
+    labels = np.array([seen[s] for s in seqs])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = clusterbreak(
+            seqs, thresh_p=0.8, size_max=len(seqs), size_min=1,
+            sim_fn=lambda x, d=dev: similarity_mh(x, k=4, n_hash=300,
+                                                  seed=0, device=d),
+            verbose=False)
+    got = runs["cuda"].clustered_seq
+    if not np.array_equal(got, runs["cpu"].clustered_seq):
+        raise AssertionError("clusterbreak on the clade sample: card != cpu")
+    assign = dict(zip(got[:, 0], got[:, 1]))
+    score = _ari([assign.get(s, "none") for s in seqs], labels)
+    if score <= 0.3:
+        raise AssertionError(f"ARI vs clades {score}")
+    print(f"  clusterbreak on {len(seqs)} unique h3n2sample rows (up to 25 "
+          f"of each of {len(np.unique(clades))} clades), MH k=4 n_hash=300: "
+          f"{len(np.unique(got[:, 1]))} clusters, equal to device='cpu'; "
+          f"ARI vs clades {score:.4f} > 0.3")
+
+    for name, seqs, nw in (("h3n2sample[:1000]", h3n2, sims),
+                           (f"all {len(evp_all)} evp_peparray 12-mers",
+                            evp_all, evp_nw)):
+        r = _pearson(similarity_mh(seqs, k=4, n_hash=200, seed=0), nw)
+        print(f"  Pearson r of MH (k=4, n_hash=200, seed 0) against exact "
+              f"NW (phase 5's matrix), {name}: {r:.6f} (printed, not held)")
+
+    walls, lines = {}, {}
+    for label, argv in (("card", ["--no-plots"]),
+                        ("cpu", ["--no-plots", "--device", "cpu"])):
+        walls[label], lines[label] = _run_example(*argv)
+    # its flows alone: run() in this process, where everything is loaded
+    spec = importlib.util.spec_from_file_location("getting_started_torch",
+                                                  EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        t0 = time.perf_counter()
+        example.run(plots=False)
+        flows_s = time.perf_counter() - t0
+    in_process = _unclocked(buf.getvalue())
+    if not lines["card"] or not (lines["card"] == lines["cpu"]
+                                 == in_process):
+        raise AssertionError(f"example: card and CPU lines differ\n"
+                             f"{lines['card']}\n{lines['cpu']}")
+    print(f"  python {os.path.relpath(EXAMPLE, ROOT)} --no-plots (limit "
+          f"300): on the card {walls['card']:.3f} s, with --device cpu "
+          f"{walls['cpu']:.3f} s (wall, start-up included); run() on the "
+          f"card in this process {flows_s:.3f} s; the "
+          f"{len(lines['card'])} printed lines equal:")
+    for line in lines["card"]:
+        print(f"    {line}")
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1305,7 +1571,6 @@ def main() -> int:
     from dynaalign_torch.io.datasets import load_sequences
     from dynaalign_torch.ops import _build, nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
-    from dynaalign_torch.tools import nw_variants
     from dynaalign_torch.tools import probe_misalign as probe
 
     t_start = time.perf_counter()
@@ -1319,31 +1584,23 @@ def main() -> int:
     print(f"nvidia-smi name, power.limit: {smi}")
 
     t0 = time.perf_counter()
-    # the schedule the queue of strips replaced, for phases 6, 7 and 9
-    list_order_wait = nw_variants.start_variant("nw_gotoh_xl", "XL_QUEUE=0")
     built = _build.build_all()
-    xl_list_lib, list_log = list_order_wait()
-    print(f"[2] built {sorted(built)} and nw_gotoh_xl XL_QUEUE=0 in "
-          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
-    for name, log in [*((n, b.log) for n, b in built.items()),
-                      ("nw_gotoh_xl XL_QUEUE=0", list_log)]:
-        for line in log.splitlines():
+    print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
+          "(one nvcc each, in parallel)")
+    for name, b in built.items():
+        for line in b.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    def xl_turns(batch):
-        """nw_gotoh_xl's queue of strips (the tree's library) and its
-        list-order variant, one warp a pair, on a batch (a_idx, a_len,
-        b_idx, b_len) under BLOSUM62 and gaps (10, 4): the launch alone
-        (work table, scratch and outputs built before; the zeroing of the
-        counter and the kernel between the events), in turns.  Returns
-        ({schedule: best ms}, {schedule: result})."""
-        gos, outs = {}, {}
-        for label, lib in (("queue", _build.load("nw_gotoh_xl")),
-                           ("list order", xl_list_lib)):
-            gos[label], outs[label] = nw_cuda.prepare_xl(
-                lib, *batch, blosum.get_matrix(device=dev), 10, 4)
-        return _turns(gos)[0], outs
+    def xl_launch(batch):
+        """nw_gotoh_xl's queue of strips on a batch (a_idx, a_len, b_idx,
+        b_len) under BLOSUM62 and gaps (10, 4): the launch alone (work
+        table, scratch and outputs built before; the zeroing of the counter
+        and the kernel between the events), best of 4.  Returns (best ms,
+        result)."""
+        go, out = nw_cuda.prepare_xl(_build.load("nw_gotoh_xl"), *batch,
+                                     blosum.get_matrix(device=dev), 10, 4)
+        return _best_ms(go)[0], out
     from dynaalign_torch.cluster import _native as louvain_native
     from dynaalign_torch.consensus import _native as msa_native
 
@@ -1559,8 +1816,7 @@ def main() -> int:
     # the long-pair kernel on the same chunk, for comparison only: the main
     # path routes these widths to nw_gotoh.  Its wrapper, three calls one
     # after another, each by CUDA events (their mean is the reading of
-    # earlier runs); the wrapper's work table alone; then the launch alone,
-    # queue and list order in turns
+    # earlier runs); the wrapper's work table alone; then the launch alone
     xl_calls = []
     for _ in range(3):
         ms, xl_got = _event_ms(
@@ -1578,13 +1834,12 @@ def main() -> int:
     table_ms, _ = _event_ms(lambda: nw_cuda.xl_work_table(
         chunk[1], chunk[3], nw_cuda.XL_STRIP, nw_cuda.LAST_XL_ITEMS),
         repeat=3)
-    chunk_turns, chunk_out = xl_turns(chunk)
-    if not (_equal(chunk_out["queue"], first_ref)
-            and _equal(chunk_out["list order"], first_ref)):
-        raise AssertionError("nw_gotoh_xl queue or list order != plain, "
-                             "first chunk")
-    print(f"  its work table alone: {table_ms:.3f} ms; the launch alone in "
-          f"turns, best ms: {chunk_turns}; both equal to plain")
+    chunk_launch_ms, chunk_out = xl_launch(chunk)
+    if not _equal(chunk_out, first_ref):
+        raise AssertionError("nw_gotoh_xl launched alone != plain, first "
+                             "chunk")
+    print(f"  its work table alone: {table_ms:.3f} ms; the launch alone, "
+          f"best of 4: {chunk_launch_ms:.3f} ms; equal to plain")
     print("  library_ms: none (no single PyTorch call computes NW)")
     t0 = time.perf_counter()
     oracle.nw_similarity(h3n2[:24])
@@ -1674,8 +1929,8 @@ def main() -> int:
           f"{q_bound_ms / xl_quarter_ms:.4f} of the bound; plain "
           f"version on the card {xl_plain_ms:.3f} ms; kernel == plain == "
           "similarity_nw")
-    # the queue of strips against the list-order schedule it replaced, in
-    # turns, on the whole set, every fourth pair and the longest pair alone
+    # the launch alone on the whole set, every fourth pair and the longest
+    # pair alone (the critical path)
     top = int(torch.argmax(largs[1].long() * largs[3].long()))
     one = [x[top : top + 1] for x in largs]
     one_cells = float(one[1].double() * one[3].double())
@@ -1683,27 +1938,21 @@ def main() -> int:
     for label, batch, ref in (("all pairs", largs, lgot),
                               ("every fourth pair", qargs, qref),
                               ("the longest pair", one, None)):
-        ms, outs = xl_turns(batch)
+        ms, out = xl_launch(batch)
         if ref is None:  # the longest pair: against similarity_nw's value
-            ref = outs["queue"]
-            if ref.similarity()[0] != lsims[liu_np[0][top], liu_np[1][top]]:
+            if out.similarity()[0] != lsims[liu_np[0][top], liu_np[1][top]]:
                 raise AssertionError("the longest pair != similarity_nw")
-        if not (_equal(outs["queue"], ref) and _equal(outs["list order"],
-                                                      ref)):
-            raise AssertionError(f"long set, {label}: queue and list order "
-                                 "differ")
+        elif not _equal(out, ref):
+            raise AssertionError(f"long set, {label}: the launch alone "
+                                 "differs")
         sched[label] = ms
-        print(f"  {label}, the launch alone in turns, best ms: queue "
-              f"{ms['queue']:.3f}, list "
-              f"order {ms['list order']:.3f} "
-              f"({ms['list order'] / ms['queue']:.3f}x); equal; "
-              + _xl_table_text(batch[1], batch[3]))
+        print(f"  {label}, the launch alone, best of 4: {ms:.3f} ms; "
+              "equal; " + _xl_table_text(batch[1], batch[3]))
     top_bound_ms = _bound(one_cells, 0)[0]
     print(f"  the longest pair alone ({int(one[1])} x {int(one[3])} aa, "
           f"{one_cells:.4e} cells): its operations bound on the whole card "
-          f"{top_bound_ms:.4f} ms; its steps on one warp, list order: "
-          f"{-(-int(one[1]) // nw_cuda.XL_STRIP)} strips x "
-          f"{int(one[3]) + 31} steps")
+          f"{top_bound_ms:.4f} ms; {-(-int(one[1]) // nw_cuda.XL_STRIP)} "
+          f"strips of {int(one[3]) + 31} steps")
     print(f"  serial C++ oracle, long set [:16, :16] (136 pairs): "
           f"{lor_s:.4f} s = {lor_rate:.4f} pairs/s; similarity_nw / oracle "
           f"= {lpairs / lbest / lor_rate:.2f}x (pairs/s; the block's pairs "
@@ -1764,17 +2013,13 @@ def main() -> int:
         rln = torch.from_numpy(renc.lengths).to(dev)
         rargs = _pair_batch(ridx, rln, torch.from_numpy(pi).to(dev),
                             torch.from_numpy(pj).to(dev))
-        ms, outs = xl_turns(rargs)
-        if not (np.array_equal(outs["queue"].similarity(), got)
-                and _equal(outs["list order"], outs["queue"])):
+        ms, out = xl_launch(rargs)
+        if not np.array_equal(out.similarity(), got):
             raise AssertionError(f"{la} x {lb_}: kernel alone != "
                                  "nw_rescore_pairs")
         rescore_ms[f"{la}x{lb_}"] = ms
         rcells = 4.0 * la * lb_
-        print(f"    the launch alone in turns, best ms: queue "
-              f"{ms['queue']:.3f},"
-              f" list order {ms['list order']:.3f} "
-              f"({ms['list order'] / ms['queue']:.3f}x); bound "
+        print(f"    the launch alone, best of 4: {ms:.3f} ms; bound "
               f"{_bound(rcells, 0)[0]:.4f} ms ({rcells:.4e} cells); "
               + _xl_table_text(rargs[1], rargs[3]))
 
@@ -1828,6 +2073,7 @@ def main() -> int:
     exact_mem = phase_clustering(evp_all, allunique, refs)
     phase_pipeline(h3n2_all, sims, long, lsims, exact_mem)
     sharded = phase_parallel(refs, allunique)
+    phase_studies(h3n2, sims, evp_all, sims_e)
     print("torch stages (no hand-written kernel), ms / bound ms / share: "
           + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
                       for k, (ms, b) in torch_stages.items()))
@@ -1860,15 +2106,16 @@ def main() -> int:
         "max_abs_err": worst_xl,
         "timed_on": "the long set's one launch; the plain version and "
                     "quarter_ms on every fourth pair of it; schedule_ms: "
-                    "the queue and the list-order variant, the launch alone "
-                    "(table prebuilt) in turns (best); rescore_ms: phase 9's "
-                    "batches, likewise; h3n2_chunk_ms: phase 6's chunk, "
-                    "likewise; h3n2_chunk_wrapper_ms: its wrapper, 3 calls",
+                    "the launch alone (table prebuilt), best of 4, on the "
+                    "long set, every fourth pair and the longest pair; "
+                    "rescore_ms: phase 9's batches, likewise; h3n2_chunk_ms: "
+                    "phase 6's chunk, likewise; h3n2_chunk_wrapper_ms: its "
+                    "wrapper, 3 calls",
         "ms": xl_all_ms,
         "quarter_ms": xl_quarter_ms,
         "schedule_ms": sched,
         "rescore_ms": rescore_ms,
-        "h3n2_chunk_ms": chunk_turns,
+        "h3n2_chunk_ms": chunk_launch_ms,
         "h3n2_chunk_wrapper_ms": xl_calls,
         "plain_ms": xl_plain_ms,
         "bound_ms": all_bound_ms,
