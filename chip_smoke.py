@@ -7,9 +7,11 @@ Phases (any failure raises; the exit code is then non-zero):
   1. the card: its name, and name/power limit from nvidia-smi;
   2. build every CUDA source in dynaalign_torch/csrc (one nvcc each, all
      started together) and the three C++ libraries (g++),
-     printing the ptxas register/shared-memory/spill lines and, for the
-     step loop of both NW kernels, the SASS instructions per DP cell and
-     whether the DPX opcodes are in its mix;
+     printing the ptxas register/shared-memory/spill lines, each kernel's
+     registers, stack and local memory from `cuobjdump -res-usage`, for
+     the step loop of both NW kernels the SASS instructions per DP cell
+     and whether the DPX opcodes are in its mix, and for the probe's
+     unrolled loop of 8 steps the SASS instructions per step;
   3. nw_gotoh against its plain PyTorch version on the card, exactly, on
      seeded fuzz of every instantiation (all BLOSUM tables and gap
      settings, lengths at each strip capacity, 1-4 columns, tie-heavy
@@ -42,8 +44,12 @@ Phases (any failure raises; the exit code is then non-zero):
      12,300 x 17,000 aa, and 300 x 40,000 aa through nw_gotoh_xl's two-word
      instantiation) against the oracle, and the launch alone on each batch
      (table prebuilt) by CUDA events;
- 10. the shift probe: every kind against its plain version, ns per step
-     and the marginals of the shuffle and the shifted load;
+ 10. the shift probe: every kind against its plain version after 64 and
+     2,001 steps, its launch geometry (blocks x threads, blocks an SM by
+     occupancy, SMs covered), ns per step beside the shared-memory bound
+     over the SMs covered, the marginals of the shuffle and the shifted
+     load; one 20,000-step shfl launch beside its bound and that
+     shared-memory bound;
  11. MinHash: similarity_mh on the 641 evp_peparray 12-mers (k=2,
      n_hash=50) equal to the seeded oracle in full; signatures of
      h3n2sample[:1000] (k=4, n_hash=500) equal to the oracle's bit for bit;
@@ -310,10 +316,13 @@ def check_result(sims, seqs, blocks):
             raise AssertionError(f"result != oracle on block {idx.tolist()}")
 
 
-def inner_loop_mix(sass: str, kernel: str) -> tuple[int, dict[str, int]]:
+def inner_loop_mix(sass: str, kernel: str,
+                   longest=False) -> tuple[int, dict[str, int]]:
     """SASS instruction count and opcode mix of the innermost loop that
     reads shared memory (the steady step loop of the DP) in the function
-    whose mangled name holds ``kernel``, from ``cuobjdump -sass``."""
+    whose mangled name holds ``kernel``, from ``cuobjdump -sass``; with
+    ``longest``, of the longest such loop (the probe's 8 unrolled steps,
+    beside its shorter copy loop)."""
     import re
     from collections import Counter
 
@@ -330,12 +339,27 @@ def inner_loop_mix(sass: str, kernel: str) -> tuple[int, dict[str, int]]:
             continue
         loop = [o for x, o, _ in ins if int(tgt, 16) <= x <= a]
         if any(o.startswith("LDS") for o in loop) and (
-            best is None or len(loop) < len(best)
+            best is None or (len(loop) > len(best) if longest
+                             else len(loop) < len(best))
         ):
             best = loop
     if best is None:
         raise AssertionError(f"no shared-memory loop in {kernel}'s SASS")
     return len(best), dict(Counter(o.split(".")[0] for o in best))
+
+
+def res_usage(path: str) -> dict[str, dict[str, int]]:
+    """Each kernel's REG, STACK and LOCAL (bytes a thread) in the library at
+    ``path``, from ``cuobjdump -res-usage``, by mangled name."""
+    from dynaalign_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                          text=True, check=True).stdout
+    return {fn: {"REG": int(reg), "STACK": int(stack), "LOCAL": int(local)}
+            for fn, reg, stack, local in re.findall(
+                r"Function (\S+):\s+REG:(\d+) STACK:(\d+) .*?LOCAL:(\d+)",
+                text)}
 
 
 def _event_ms(fn, repeat=1):
@@ -1627,6 +1651,19 @@ def main() -> int:
               f"cells = {n_ins / rows:.1f} per cell; DPX and dp4a opcodes "
               f"in it: {dpx}; mix "
               f"{sorted(mix.items(), key=lambda kv: -kv[1])}")
+    probe_sass = subprocess.run(
+        [cuobjdump, "-sass", built["probe_shift"].path],
+        capture_output=True, text=True, check=True).stdout
+    for k in range(len(probe.KINDS)):
+        fn = f"probe_shift_kernelILi{k}E"
+        n_ins, mix = inner_loop_mix(probe_sass, fn, longest=True)
+        print(f"  {fn} ({probe.KINDS[k]}) loop of 8 steps: {n_ins} SASS "
+              f"instructions = {n_ins / 8:.1f} per step; mix "
+              f"{sorted(mix.items(), key=lambda kv: -kv[1])}")
+    for name in ("nw_gotoh", "nw_gotoh_xl", "probe_shift"):
+        for fn, use in res_usage(built[name].path).items():
+            print(f"  {name} {fn}: {use['REG']} registers, stack "
+                  f"{use['STACK']} B, local {use['LOCAL']} B (spills)")
 
     print("[3] nw_gotoh vs plain version on the card, every instantiation "
           f"{nw_cuda.INSTANCES}")
@@ -2029,17 +2066,25 @@ def main() -> int:
     probe.LAUNCHES = 0
     per_kind, probe_err = {}, 0
     for k in probe.KINDS:
-        got = probe.probe_shift(seed, k, 64)
-        ref = probe.probe_plain(seed, k, 64)
-        probe_err = max(probe_err, int((got - ref).abs().max()))
-        if not torch.equal(got, ref):
-            raise AssertionError(f"probe_shift != plain ({k})")
+        for n in (64, 2001):
+            got = probe.probe_shift(seed, k, n)
+            ref = probe.probe_plain(seed, k, n)
+            probe_err = max(probe_err, int((got - ref).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"probe_shift != plain ({k}, {n} steps)")
+        grid = probe.geometry(k)
         per_kind[k] = probe.run(k)
-        print(f"  {k}: equal to the plain version after 64 steps; "
+        smem_ns = probe.bound_ns_per_step(k, clock_hz, grid["sms_covered"])
+        print(f"  {k}: equal to the plain version after 64 and 2,001 steps; "
               f"{per_kind[k]:.3f} ns/step marginal; shared-memory bound "
-              f"{probe.bound_ns_per_step(k, clock_hz):.3f} ns/step "
-              f"({probe.smem_bytes_per_step(k)} B per block per step at 128 "
-              f"B/clock, {clock_hz / 1e9:.3f} GHz)")
+              f"{smem_ns:.3f} ns/step ({probe.smem_bytes_per_step(k)} B a "
+              f"step over {grid['sms_covered']} SMs at 128 B/clock, "
+              f"{clock_hz / 1e9:.3f} GHz); grid {grid['blocks']} x "
+              f"{grid['threads']}, {grid['smem_bytes']} B of shared memory "
+              f"a block, {grid['blocks_per_sm']} block an SM by occupancy: "
+              f"{grid['sms_covered']} of {grid['sms']} SMs covered")
+        if grid["sms_covered"] < 128:
+            raise AssertionError(f"the probe's grid covers only {grid}")
     probe_launches = probe.LAUNCHES
     for k in ("shfl", "mis"):
         print(f"  {k} - base: {per_kind[k] - per_kind['base']:.3f} ns/step")
@@ -2054,11 +2099,14 @@ def main() -> int:
     probe_bound_ms *= 1e3
     probe_bound_by = ("operations" if xors / ALU_OPS_PER_S
                       >= pbytes / HBM_BYTES_PER_S else "bytes")
-    smem_ms = probe.bound_ns_per_step("shfl", clock_hz) * steps / 1e6
+    smem_ms = probe.bound_ns_per_step("shfl", clock_hz,
+                                      grid["sms_covered"]) * steps / 1e6
     print(f"  shfl, one launch of {steps} steps: {probe_ms:.3f} ms; bound "
           f"{probe_bound_ms:.4f} ms by {probe_bound_by} ({xors} xors at the "
-          f"ALU rate), {smem_ms:.3f} ms by shared memory on its 8 SMs; "
-          f"plain version on the card {probe_plain_ms:.3f} ms")
+          f"ALU rate) = {probe_bound_ms / probe_ms:.4f} of the bound; "
+          f"{smem_ms:.3f} ms by shared memory on its {grid['sms_covered']} "
+          f"SMs = {smem_ms / probe_ms:.4f}; plain version on the card "
+          f"{probe_plain_ms:.3f} ms")
 
     h3n2_all = load_sequences("h3n2sample")
     allunique = load_sequences("allunique")
@@ -2133,8 +2181,10 @@ def main() -> int:
         "plain_ms": probe_plain_ms,
         "bound_ms": probe_bound_ms,
         "bound_by": probe_bound_by,
+        "smem_bound_ms": smem_ms,
         "library_ms": None,
         "ns_per_step": per_kind,
+        "grid": grid,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

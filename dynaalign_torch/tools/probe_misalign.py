@@ -5,10 +5,12 @@
 The port of the JAX package's ``tools/probe_misalign.py``.  The NW
 wavefront's ancestor shift (shifted[i] = x[i-1]) is a roll on the TPU; on
 the card it is a register shuffle between lanes that hold neighbouring rows
-(``csrc/nw_gotoh_xl.cu``) or a shared-memory load one row lower.  The
-kernel ``csrc/probe_shift.cu`` runs one synthetic step loop at the TPU
-probe's shape (a [336, 256] int32 window of a [584, 256] plane) in three
-kinds:
+(``csrc/nw_cell.cuh``'s hand-off) or a shared-memory load one row lower.
+The kernel ``csrc/probe_shift.cu`` runs one synthetic step loop at the TPU
+probe's shape (a [336, 256] int32 window of a [584, 256] plane) in the NW
+kernels' layout: a group of ``GROUP`` lanes per column, lane t holding
+``ROWS_PER_LANE`` consecutive window rows in registers, one warp (two
+columns) a block, ``BLOCKS`` blocks each alone on its SM.  Three kinds:
 
   base:  b = a                        (no shift)
   shfl:  b = a rolled down one row    (the shuffle; the TPU probe's roll)
@@ -17,7 +19,8 @@ kinds:
 and stores ``a ^ b`` into the window.  :func:`probe_shift` returns the
 whole plane after ``n_steps`` steps: through the kernel for a CUDA tensor,
 through :func:`probe_plain` for a CPU tensor.  :func:`run` times the
-marginal ns per step on the card by differencing two step counts.
+marginal ns per step on the card by differencing two step counts;
+:func:`geometry` reads the launch's blocks and how many an SM holds.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ import torch
 from ..ops import _build
 
 MP1, B, W = 584, 256, 336
-BLOCK_COLS = 32  # columns per block: 8 blocks, each on its own SM
+GROUP = 16  # lanes a column (PROBE_G)
+ROWS_PER_LANE = W // GROUP  # 21 (PROBE_R)
+BLOCK_COLS = 32 // GROUP  # columns a block of one warp: 2 (PROBE_BCOLS)
+BLOCKS = B // BLOCK_COLS  # 128 blocks, one an SM (PROBE_BLOCKS)
 KINDS = ("base", "shfl", "mis")
 LAUNCHES = 0  # kernel launches in this process; reset to 0 to count a run
 SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM per clock
@@ -96,19 +102,45 @@ def probe_shift(seed: torch.Tensor, kind: str, n_steps: int) -> torch.Tensor:
 
 
 def smem_bytes_per_step(kind: str) -> int:
-    """Shared-memory bytes one block moves in one step: the window read
-    and written, plus the shifted window (mis) or the edge loads (shfl:
-    lane 0 of each of the 21 warps and row 0 of each column it holds)."""
-    window = W * BLOCK_COLS * 4
-    # 672 threads of 16 elements: 21 hold lane 0 and one more holds row 0
-    edges = (21 + 1) * 16 * 4
-    return 2 * window + {"base": 0, "shfl": edges, "mis": window}[kind]
+    """Shared-memory bytes of one step over the whole plane: the window
+    read and written, plus one 4-byte load a lane (mis: row 0 of each
+    lane's rows, one row lower); the shuffle (shfl) moves none."""
+    window = W * B * 4
+    lanes = BLOCKS * 32
+    return 2 * window + {"base": 0, "shfl": 0, "mis": 4 * lanes}[kind]
 
 
-def bound_ns_per_step(kind: str, clock_hz: float) -> float:
-    """Least time of one step: each block's shared-memory bytes at
-    SMEM_BYTES_PER_CLOCK on its own SM."""
-    return smem_bytes_per_step(kind) / SMEM_BYTES_PER_CLOCK / clock_hz * 1e9
+def bound_ns_per_step(kind: str, clock_hz: float,
+                      sms: int = BLOCKS) -> float:
+    """Least time of one step: its shared-memory bytes at
+    SMEM_BYTES_PER_CLOCK on each of the ``sms`` SMs the grid covers (one
+    block an SM, so ``BLOCKS``)."""
+    return (smem_bytes_per_step(kind) / (SMEM_BYTES_PER_CLOCK * sms)
+            / clock_hz * 1e9)
+
+
+def geometry(kind: str = "shfl") -> dict[str, int]:
+    """The launch geometry of ``kind`` on the current card: blocks, threads
+    a block, dynamic shared memory a block, the most blocks an SM holds at
+    once (from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the
+    card's SMs, and ``sms_covered``: the fewest SMs the grid can run on
+    (all of its blocks are resident at once)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the launch geometry is the card's; no CUDA device")
+    fn = _build.load("probe_shift").probe_shift_geometry
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 15)()
+    rc = fn(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"probe_shift geometry failed: CUDA error {rc}")
+    i = 5 * KINDS.index(kind)
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "sms")
+    g = dict(zip(keys, out[i:i + 5]))
+    if g["blocks_per_sm"] < 1 or g["blocks"] > g["blocks_per_sm"] * g["sms"]:
+        raise RuntimeError(f"the probe's blocks are not all resident: {g}")
+    g["sms_covered"] = -(-g["blocks"] // g["blocks_per_sm"])
+    return g
 
 
 def seed_plane(device, seed: int = 0) -> torch.Tensor:
@@ -121,8 +153,9 @@ def seed_plane(device, seed: int = 0) -> torch.Tensor:
 
 def run(kind: str, n_steps=(2000, 20000), device="cuda") -> float:
     """Marginal ns per step of ``kind`` on the card: (t(n_steps[1]) -
-    t(n_steps[0])) / (n_steps[1] - n_steps[0]), each time by CUDA events,
-    the least of 5 differences."""
+    t(n_steps[0])) / (n_steps[1] - n_steps[0]), each t the least of 5
+    launches timed by CUDA events: a host stall only adds time, so the
+    least of each count is its clean time."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the probe times the card; no CUDA device given")
@@ -139,8 +172,11 @@ def run(kind: str, n_steps=(2000, 20000), device="cuda") -> float:
         return start.elapsed_time(stop)
 
     lo, hi = n_steps
-    ests = [(ms(hi) - ms(lo)) * 1e6 / (hi - lo) for _ in range(5)]
-    return min(ests)
+    t_lo, t_hi = [], []
+    for _ in range(5):
+        t_lo.append(ms(lo))
+        t_hi.append(ms(hi))
+    return (min(t_hi) - min(t_lo)) * 1e6 / (hi - lo)
 
 
 def main() -> int:
@@ -155,12 +191,17 @@ def main() -> int:
     seed = seed_plane(dev)
     ns = {}
     for kind in KINDS:
-        got = probe_shift(seed, kind, 64)
-        if not torch.equal(got.cpu(), probe_plain(seed.cpu(), kind, 64)):
-            raise AssertionError(f"probe kernel != plain version ({kind})")
+        for n in (64, 2001):
+            got = probe_shift(seed, kind, n)
+            if not torch.equal(got.cpu(), probe_plain(seed.cpu(), kind, n)):
+                raise AssertionError(f"probe kernel != plain version ({kind}, "
+                                     f"{n} steps)")
+        g = geometry(kind)
         ns[kind] = run(kind)
         print(f"{kind}: {ns[kind]:.2f} ns/step, bound "
-              f"{bound_ns_per_step(kind, clock):.2f} ns/step")
+              f"{bound_ns_per_step(kind, clock, g['sms_covered']):.2f} "
+              f"ns/step; grid {g['blocks']} x {g['threads']}, "
+              f"{g['sms_covered']} SMs")
     for kind in ("shfl", "mis"):
         print(f"{kind} - base: {ns[kind] - ns['base']:.2f} ns/step")
     return 0

@@ -340,12 +340,31 @@ def test_xl_queue_under_memcheck(cuda, tmp_path):
 
 @pytest.mark.parametrize("kind", ["base", "shfl", "mis"])
 def test_probe_kernel_equals_plain(cuda, kind):
+    """Every step count the unroll over the 8 window offsets treats apart:
+    none, fewer than 8, a multiple of 8, and 2,001 = 250 * 8 + 1."""
     from dynaalign_torch.tools import probe_misalign as probe
 
-    seed = probe.seed_plane(cuda, 3)
-    got = probe.probe_shift(seed, kind, 64)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), probe.probe_plain(seed.cpu(), kind, 64))
+    for s in (3, 11):
+        seed = probe.seed_plane(cuda, s)
+        for n_steps in (0, 1, 7, 64, 2001):
+            got = probe.probe_shift(seed, kind, n_steps)
+            torch.cuda.synchronize()
+            ref = probe.probe_plain(seed.cpu(), kind, n_steps)
+            assert torch.equal(got.cpu(), ref), (s, n_steps)
+
+
+def test_probe_launch_covers_128_sms(cuda):
+    """The occupancy calculator holds one probe block an SM, and every
+    block is resident at once, so the grid runs on as many SMs as it has
+    blocks: at least 128."""
+    from dynaalign_torch.tools import probe_misalign as probe
+
+    for kind in probe.KINDS:
+        g = probe.geometry(kind)
+        assert g["blocks"] == probe.BLOCKS and g["threads"] == 32
+        assert g["blocks_per_sm"] == 1
+        assert g["blocks"] <= g["sms"]
+        assert g["sms_covered"] == g["blocks"] >= 128
 
 
 def test_wrapper_rejects_int64_on_card(cuda):

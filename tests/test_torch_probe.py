@@ -90,33 +90,68 @@ def test_plain_rows_0_8_equal_jax_probe(kind):
 _PROBE_SHIM = r"""
 #define __shared__
 #include "probe_shift.cu"
-int probe_plane[PROBE_BCOLS * PROBE_ROWS];
+int probe_plane[PROBE_BCOLS * PROBE_STRIDE];
 extern "C" void probe_shift_host(const int* seed, int* out, int kind,
                                  int n_steps) {
-  harness::launch(PROBE_COLS / PROBE_BCOLS, PROBE_THREADS, [&] {
+  harness::launch(PROBE_BLOCKS, PROBE_THREADS, [&] {
     if (kind == 0) probe_shift_kernel<0>(seed, out, n_steps);
     if (kind == 1) probe_shift_kernel<1>(seed, out, n_steps);
     if (kind == 2) probe_shift_kernel<2>(seed, out, n_steps);
-  });
+  }, probe_plane, PROBE_BCOLS * PROBE_STRIDE);
+}
+// blocks, threads, columns a block, lanes a column, rows a lane, the
+// column stride in shared memory and the dynamic shared memory asked for
+extern "C" void probe_shift_consts(int* out) {
+  const int v[7] = {PROBE_BLOCKS, PROBE_THREADS, PROBE_BCOLS, PROBE_G,
+                    PROBE_R, PROBE_STRIDE, PROBE_SMEM_BYTES};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 """
 
 
 @pytest.fixture(scope="module")
-def probe_host(tmp_path_factory):
-    fn = build_host(tmp_path_factory.mktemp("probe_host"), "probe_shift",
-                    _PROBE_SHIM).probe_shift_host
-    fn.restype = None
-    return fn
+def probe_lib(tmp_path_factory):
+    lib = build_host(tmp_path_factory.mktemp("probe_host"), "probe_shift",
+                     _PROBE_SHIM)
+    lib.probe_shift_host.restype = None
+    lib.probe_shift_consts.restype = None
+    return lib
 
 
+@pytest.mark.parametrize("n_steps", [0, 1, 7, 20])
 @pytest.mark.parametrize("kind", probe.KINDS)
-def test_probe_source_equals_plain(probe_host, kind):
+def test_probe_source_equals_plain(probe_lib, kind, n_steps):
+    """The whole grid through the host harness, every block a warp; 7 and
+    20 steps are not multiples of 8, so the steps after the unrolled
+    groups of 8 run too."""
     seed = _seed(3)
     out = np.full_like(seed, -1)
-    probe_host(ptr(seed), ptr(out), probe.KINDS.index(kind), 20)
-    ref = probe.probe_plain(torch.from_numpy(seed), kind, 20).numpy()
+    probe_lib.probe_shift_host(ptr(seed), ptr(out), probe.KINDS.index(kind),
+                               n_steps)
+    ref = probe.probe_plain(torch.from_numpy(seed), kind, n_steps).numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+def test_probe_geometry_of_the_source(probe_lib):
+    """The module's constants are the source's, and the layout is the NW
+    kernels': a group of lanes a column whose rows split evenly, one warp a
+    block, at least 128 blocks, each asking for more than half of an SM's
+    228 KB of shared memory, so that no two share an SM; the column stride
+    sends the warp's 32 lanes to 32 banks."""
+    out = np.zeros(7, np.int32)
+    probe_lib.probe_shift_consts(ptr(out))
+    blocks, threads, bcols, g, r, stride, smem = out.tolist()
+    assert (blocks, bcols, g, r) == (probe.BLOCKS, probe.BLOCK_COLS,
+                                     probe.GROUP, probe.ROWS_PER_LANE)
+    assert threads == 32 and bcols * g == threads and g * r == probe.W
+    assert blocks * bcols == probe.B and blocks >= 128
+    assert 2 * (smem + 1024) > 228 * 1024 and smem <= 227 * 1024
+    assert stride >= probe.MP1 and bcols * stride * 4 <= smem
+    for o in range(16, 16 + 8 * 16, 16):
+        for i in range(r):
+            banks = {(lane // g * stride + o + r * (lane % g) + i) % 32
+                     for lane in range(threads)}
+            assert len(banks) == 32
 
 
 def test_probe_wrapper_on_cpu_and_its_checks():
@@ -138,9 +173,16 @@ def test_probe_wrapper_on_cpu_and_its_checks():
 
 
 def test_probe_bound_counts_shared_memory_bytes():
-    window = probe.W * probe.BLOCK_COLS * 4
+    """A step reads and writes the [336, 256] window; mis adds one 4-byte
+    load for each of the 128 * 32 lanes, shfl no shared memory; the bound
+    spreads the bytes over the SMs the grid covers, 128 by default."""
+    window = probe.W * probe.B * 4
     assert probe.smem_bytes_per_step("base") == 2 * window
-    assert probe.smem_bytes_per_step("mis") == 3 * window
-    assert probe.smem_bytes_per_step("shfl") == 2 * window + 22 * 16 * 4
+    assert probe.smem_bytes_per_step("mis") == 2 * window + 128 * 32 * 4
+    assert probe.smem_bytes_per_step("shfl") == 2 * window
     assert probe.bound_ns_per_step("base", 1.98e9) == pytest.approx(
-        2 * window / 128 / 1.98)
+        2 * window / (128 * 128) / 1.98)
+    assert probe.bound_ns_per_step("base", 1.98e9) == pytest.approx(
+        42 / 1.98)  # clocks a step on each SM
+    assert probe.bound_ns_per_step("mis", 1.98e9, 64) == pytest.approx(
+        (2 * window + 128 * 32 * 4) / (128 * 64) / 1.98)
