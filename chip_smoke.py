@@ -107,7 +107,18 @@ Phases (any failure raises; the exit code is then non-zero):
      CPU); the Louvain/networkx study is left out (no networkx there); the
      Pearson r of MH against phase 5's NW matrices (printed only); then
      examples/getting_started_torch.py --no-plots on the card and with
-     --device cpu, each timed, their printed lines equal.
+     --device cpu, each timed, their printed lines equal;
+ 18. the BASELINE configurations at the sizes the JAX package ran them
+     (docs/PERF.md:347-357): config 2 on all 8,103 h3n2sample proteins (J
+     mapped to L in 2 rows; 32,833,356 pairs), MinHash on all 11,517
+     h3n2ha1415 proteins, config 4 on the adenovirus, parvovirus and
+     polyomavirus panels whole, config 5 (cluster_large and
+     cluster_large_exact) on 100,000 peptides (allunique and seeded point
+     mutants); each a warm and a timed call, with the timed call's wall,
+     rate, stages, nw_gotoh launches and kernel ms, peak device memory and
+     host RSS; held to the serial oracle (blocks, the J rows, sampled pairs,
+     the whole MinHash matrix, every kept panel pair) and to the JAX
+     package's config-5 memberships (pinned sha256).
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -486,6 +497,52 @@ def mixed_set():
         joins.append("".join(full[pos : pos + k]))
         pos += k
     return load_sequences("evp_peparray", 64) + ha[:64] + joins
+
+
+AMINO_ACIDS = "ARNDCQEGHILKMFPSTWYV"
+
+
+def j_to_l(seqs) -> tuple[list[str], list[int]]:
+    """(``seqs`` with J mapped to L, the rows that held a J).  Encoding and
+    the oracle reject J (Xle), which 2 of the 8,103 h3n2sample rows hold;
+    benchmarks/run_benchmarks.py:97-99 maps it so, and the same mapped list
+    then feeds every engine."""
+    return ([s.replace("J", "L") for s in seqs],
+            [i for i, s in enumerate(seqs) if "J" in s])
+
+
+def with_mutants(seqs, n: int, seed: int = 0) -> list[str]:
+    """``seqs`` padded to ``n`` rows with point mutants of its own rows,
+    drawn as benchmarks/run_benchmarks.py::bench_topk_large draws them:
+    the bases first, then for each base the position and the new letter."""
+    out = list(seqs)
+    rng = np.random.default_rng(seed)
+    for b in rng.choice(len(out), size=n - len(out)):
+        s = list(out[int(b)])
+        s[int(rng.integers(0, len(s)))] = str(rng.choice(list(AMINO_ACIDS)))
+        out.append("".join(s))
+    return out
+
+
+def rescored_entries_exact(hyb, mh, ref,
+                           quantile: float = 0.8) -> tuple[float, int, int]:
+    """benchmarks/run_benchmarks.py:184-196's check of a dense hybrid
+    matrix ``hyb``: every pair whose MH similarity ``mh`` reaches the
+    ``quantile`` of the strict upper triangle equals ``ref`` (the oracle's
+    NW matrix), and every other off-diagonal entry is 0.  Returns (the
+    threshold, the kept pairs, all pairs); raises otherwise."""
+    n = len(mh)
+    iu = np.triu_indices(n, k=1)
+    t = np.quantile(mh[iu], quantile)
+    keep = mh[iu] >= t
+    ii, jj = iu[0][keep], iu[1][keep]
+    dropped = np.ones((n, n), dtype=bool)
+    dropped[ii, jj] = dropped[jj, ii] = False
+    np.fill_diagonal(dropped, False)
+    if not (len(ii) and np.array_equal(hyb[ii, jj], ref[ii, jj])
+            and (hyb[dropped] == 0.0).all()):
+        raise AssertionError("rescored_entries_exact failed")
+    return float(t), len(ii), len(iu[0])
 
 
 def _best_of(fn, repeat=3):
@@ -1583,6 +1640,311 @@ def phase_studies(h3n2, sims, evp_all, evp_nw) -> None:
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
+# BASELINE config 5 (benchmarks/run_benchmarks.py:312-315, 362-366): the
+# allunique 12-mers padded with with_mutants to CONFIG5_N rows
+CONFIG5_N = 100_000
+CONFIG5 = dict(k=4, n_hash=50, seed=0, top_k=32, thresh_p=0.8)
+# sha256 (_digest of the int64 vector) of the JAX package's memberships on
+# that input, pinned from its run on the CPU:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, chip_smoke as cs; \
+#   from dynaalign_tpu.io.datasets import load_sequences as L; \
+#   from dynaalign_tpu.models import cluster_large_exact as e; \
+#   from dynaalign_tpu.ops.topk_graph import cluster_large as c; \
+#   s = cs.with_mutants(L('allunique'), cs.CONFIG5_N); \
+#   [print(f.__name__, cs._digest(np.asarray(f(s, **cs.CONFIG5), np.int64))) \
+#    for f in (c, e)]"
+# (9,122 and 7,560 clusters; 413,955 edges rescored by the exact path)
+C5_DIGESTS = {
+    "cluster_large":
+        "28320ba568931cb137157159746a6a586269d04346be8fee62216664d0a45851",
+    "cluster_large_exact":
+        "033ba3df336163654aea33c45859482855029bec355dd0f9955ea53ee36a578d",
+}
+# the cluster count docs/PERF.md:357 records for cluster_large on it
+C5_RECORDED_CLUSTERS = 9122
+PANELS = ("adenovirus", "parvovirus", "polyomavirus")
+
+
+@contextlib.contextmanager
+def nw_gotoh_events():
+    """CUDA events around each nw_gotoh launch (the ctypes call of
+    nw_cuda._run alone) inside the block; yields the list of (start, stop)
+    pairs, read after a synchronise."""
+    from dynaalign_torch.ops import nw_cuda
+
+    real, pairs = nw_cuda.bind, []
+
+    def bind(lib, name):
+        fn = real(lib, name)
+        if name != "nw_gotoh":
+            return fn
+
+        def timed(*args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            rc = fn(*args)
+            ev[1].record()
+            pairs.append(ev)
+            return rc
+        return timed
+
+    nw_cuda.bind = bind
+    try:
+        yield pairs
+    finally:
+        nw_cuda.bind = real
+
+
+def _host_peak() -> int:
+    """The process's peak resident set so far, bytes (ru_maxrss; Linux
+    gives kB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def mandated_run(label: str, call, items: int, unit: str, timings=None):
+    """``call()`` twice, the warm call and the timed one apart, each ending
+    in a synchronise, with CUDA events around every nw_gotoh launch.
+    ``timings``, if given, is a dict the calls fill (their own stage
+    seconds); it is cleared before each.  Prints wall s, the rate in
+    ``unit``/s over ``items``, the stage seconds, the launches of both NW
+    kernels and Σ kernel ms, peak device memory (above what was allocated
+    before) and peak host RSS, and the card's name and power limit; raises
+    unless both calls give equal results.  Returns (the timed call's
+    result, its nw_gotoh launches, their Σ kernel ms)."""
+    from dynaalign_torch.ops import nw_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases' tensors
+    walls, outs, launches, stages = [], [], [], {}
+    for timed in (False, True):
+        if timings is not None:
+            timings.clear()
+        nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+        with nw_gotoh_events() as events:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(call())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches.append((nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL))
+        if timed:
+            kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+            stages = dict(timings or {})
+        else:
+            outs[0] = _digest(outs[0])
+    if _digest(outs[1]) != outs[0]:
+        raise AssertionError(f"{label}: the two calls differ")
+    if launches[0] != launches[1]:
+        raise AssertionError(f"{label}: launches {launches} differ")
+    peak = torch.cuda.max_memory_allocated()
+    stage_text = ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                           else f"{k} {v}" for k, v in stages.items())
+    print(f"  {label}: warm call {walls[0]:.4f} s, timed call {walls[1]:.4f}"
+          f" s = {items / walls[1]:.4e} {unit}/s; stages "
+          f"{stage_text or '(below)'}; "
+          f"nw_gotoh launches {launches[1][0]}, Σ kernel "
+          f"{kernel_ms:.3f} ms (CUDA events) = {kernel_ms / 1e3 / walls[1]:.4f}"
+          f" of the wall; nw_gotoh_xl launches {launches[1][1]}; peak device "
+          f"memory {peak - held} bytes above the {held} held before; the "
+          f"process's peak host RSS so far "
+          f"{_host_peak()} bytes; {_smi()}")
+    return outs[1], launches[1][0], kernel_ms
+
+
+def phase_mandated(sims) -> dict[str, int]:
+    """[18] The BASELINE configurations at the sizes the JAX package ran
+    them (docs/PERF.md:347-357), through the port's entry points on the
+    card, each held to the serial oracle and to the JAX package:
+    config 2 on every h3n2sample protein (J mapped to L), MinHash on every
+    h3n2ha1415 protein, config 4 on the three viral panels whole, config 5
+    on CONFIG5_N peptides.  ``sims`` is phase 5's NW matrix of
+    h3n2sample[:1000].  Returns nw_gotoh's launches by run."""
+    from dynaalign_torch import (
+        api, cluster_large, cluster_large_exact, oracle, similarity_hybrid,
+        similarity_mh, similarity_nw,
+    )
+    from dynaalign_torch.encode import InvalidSequenceError, encode
+    from dynaalign_torch.io.datasets import load_sequences
+    from dynaalign_torch.models import pipeline
+    from dynaalign_torch.ops import minhash, pair_bytes, topk_graph
+
+    print("[18] BASELINE configurations at their mandated sizes")
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # config 2 on the full set: every pair of the upper triangle
+    full = load_sequences("h3n2sample")
+    seqs, j_rows = j_to_l(full)
+    try:
+        similarity_nw(full)
+    except InvalidSequenceError:
+        pass
+    else:
+        raise AssertionError("similarity_nw took J unmapped")
+    n = len(seqs)
+    pairs = n * (n + 1) // 2
+    width = encode(seqs).indices.shape[1]
+    per_launch = min(api.DEFAULT_CHUNK, api.LAUNCH_BYTES // pair_bytes(
+        width, width))
+    print(f"  config 2: all {n} h3n2sample proteins, {len(j_rows)} with J "
+          f"(rows {j_rows}) mapped to L, unmapped input raises "
+          f"InvalidSequenceError; {pairs} pairs in launches of {per_launch}")
+    if len(j_rows) != 2:
+        raise AssertionError(f"J rows {j_rows}, not 2")
+    nw, launches["config 2"], kernel_ms = mandated_run(
+        f"similarity_nw, {n} proteins", lambda: similarity_nw(seqs), pairs,
+        "pairs")
+    if launches["config 2"] != -(-pairs // per_launch):
+        raise AssertionError(f"config 2: {launches['config 2']} launches")
+    lens = np.array([len(s) for s in seqs], dtype=np.float64)
+    cells = (lens.sum() ** 2 + (lens ** 2).sum()) / 2
+    nbytes = 4 * (2 * pairs * width + 4 * pairs + 32 * 32)
+    bound_ms, bound_by, _ = _bound(cells, nbytes)
+    print(f"  its {cells:.4e} cells: Σ kernel {kernel_ms:.3f} ms = "
+          f"{kernel_ms / launches['config 2']:.3f} ms a launch, "
+          f"{cells / kernel_ms * 1e3:.4e} cell updates/s; bound "
+          f"{bound_ms:.3f} ms by {bound_by} = {bound_ms / kernel_ms:.4f} of "
+          "it")
+    print("  its own steps, s (timed in place, a synchronise after each), "
+          + _stage_text(host_stages(seqs)))
+    empty = [i for i, s in enumerate(seqs) if not s]
+    bad = {tuple(x) for x in np.argwhere(~np.isfinite(nw)).tolist()}
+    if nw.shape != (n, n) or nw.dtype != np.float64 or bad != {
+            (i, j) for i in empty for j in empty}:
+        raise AssertionError("config 2: bad matrix (shape, dtype, or a "
+                             "non-finite entry not between empty rows)")
+    fin = nw[np.isfinite(nw)]
+    if not np.array_equal(nw, nw.T, equal_nan=True) or not (
+            (fin >= 0) & (fin <= 1)).all():
+        raise AssertionError("config 2: not symmetric in [0, 1]")
+    t0 = time.perf_counter()
+    if not np.array_equal(nw[:100, :100], oracle.nw_similarity(seqs[:100]),
+                          equal_nan=True):
+        raise AssertionError("config 2: [:100, :100] != oracle")
+    m = len(sims)
+    if not np.array_equal(nw[:m, :m], sims):
+        raise AssertionError(f"config 2: [:{m}, :{m}] != phase 5's matrix")
+    for r in j_rows:
+        want = [oracle.nw_pair(seqs[min(r, j)], seqs[max(r, j)])
+                for j in range(n)]
+        if not np.array_equal(nw[r], want, equal_nan=True):
+            raise AssertionError(f"config 2: J row {r} != oracle")
+    ij = np.sort(np.random.default_rng(18).integers(0, n, size=(4096, 2)),
+                 axis=1)
+    want = [oracle.nw_pair(seqs[i], seqs[j]) for i, j in ij]
+    if not np.array_equal(nw[ij[:, 0], ij[:, 1]], want, equal_nan=True):
+        raise AssertionError("config 2: sampled pairs != oracle")
+    print(f"  symmetric, in [0, 1] but NaN only between the {len(empty)} "
+          f"empty row(s) ({len(bad)} entries), as the oracle gives; equal to "
+          f"the serial oracle on [:100, :100], on both J rows against all "
+          f"{n} and on 4,096 pairs drawn with default_rng(18), and to phase "
+          f"5's matrix on [:{m}, :{m}] ({time.perf_counter() - t0:.1f} s)")
+    del nw, fin
+
+    # MinHash on the full h3n2ha1415 set
+    ha = load_sequences("h3n2ha1415")
+    n = len(ha)
+    print(f"  MinHash: all {n} h3n2ha1415 proteins, k=4 n_hash=50 seed 0, "
+          f"row block {minhash.row_block(n, 50)}")
+    mh, _, _ = mandated_run(f"similarity_mh, {n} proteins",
+                         lambda: similarity_mh(ha, 4, 50), n * (n - 1) // 2,
+                         "pairs")
+    t0 = time.perf_counter()
+    if not np.array_equal(mh, oracle.minhash_similarity(ha, 4, 50, 0)):
+        raise AssertionError("similarity_mh on h3n2ha1415 != oracle")
+    print(f"  equal to the seeded serial oracle in full, bit for bit "
+          f"(oracle {time.perf_counter() - t0:.1f} s)")
+    del mh
+    stages, _ = stage_times({
+        (api, "encode"): "encode",
+        (api, "minhash_signatures"): "signatures",
+        (minhash, "signature_agreement_counts"): "agreement",
+        (minhash, "fetch_counts"): "fetch",
+        (minhash, "counts_to_similarity"): "divide and fill",
+    }, lambda: similarity_mh(ha, 4, 50).shape)
+    print("  its own steps, s, " + _stage_text(stages))
+
+    # config 4 on each viral panel whole
+    for panel in PANELS:
+        pseqs = load_sequences(panel)
+        n = len(pseqs)
+        hyb, launches[f"config 4 {panel}"], _ = mandated_run(
+            f"similarity_hybrid, {panel}, {n} 12-mers",
+            lambda: similarity_hybrid(pseqs, k=4, n_hash=50, seed=0),
+            n * (n - 1) // 2, "pairs")
+        t0 = time.perf_counter()
+        t, kept, all_pairs = rescored_entries_exact(
+            hyb, oracle.minhash_similarity(pseqs, 4, 50, 0),
+            oracle.nw_similarity(pseqs))
+        if not np.array_equal(hyb, hyb.T) or not (np.diag(hyb) == 1).all():
+            raise AssertionError(f"{panel}: not symmetric, unit diagonal")
+        stages, _ = stage_times({
+            (pipeline, "similarity_mh"): "MH",
+            (pipeline, "_select_pairs"): "quantile and pair selection",
+            (pipeline, "nw_rescore_pairs"): "rescore",
+            (pipeline, "_fill_pairs"): "fill",
+        }, lambda: similarity_hybrid(pseqs, k=4, n_hash=50, seed=0).shape)
+        print(f"  rescored_entries_exact: MH quantile 0.8 = {t} keeps "
+              f"{kept} of {all_pairs} pairs, each equal to the serial oracle, the rest 0 "
+              f"({time.perf_counter() - t0:.1f} s); its own steps, s, "
+              + _stage_text(stages))
+        del hyb
+
+    # config 5 at CONFIG5_N peptides
+    base = load_sequences("allunique")
+    pep = with_mutants(base, CONFIG5_N)
+    n = len(pep)
+    print(f"  config 5: {n} peptides (allunique's {len(base)} and "
+          f"{n - len(base)} seeded point mutants of them), {CONFIG5}; top-k "
+          f"row block {minhash.row_block(n, 50)}")
+    # cluster_large's top-k lists and signatures, kept for the row check
+    seen = {}
+    real = topk_graph._topk_neighbours
+
+    def keep_lists(sigs, k, mesh=None):
+        out = real(sigs, k, mesh)
+        seen.update(sigs=minhash.signatures_to_numpy(sigs), lists=out)
+        return out
+
+    for fn in (cluster_large, cluster_large_exact):
+        timings = {}
+        topk_graph._topk_neighbours = keep_lists
+        try:
+            mem, launches[fn.__name__], _ = mandated_run(
+                f"{fn.__name__}, {n} peptides",
+                lambda: fn(pep, timings=timings, **CONFIG5), n, "sequences",
+                timings)
+        finally:
+            topk_graph._topk_neighbours = real
+        got = _digest(np.asarray(mem, np.int64))
+        n_clusters = len(np.unique(mem))
+        if got != C5_DIGESTS[fn.__name__]:
+            raise AssertionError(f"{fn.__name__}: membership sha256 {got} "
+                                 "!= the JAX package's")
+        print(f"  {fn.__name__}: {n_clusters} clusters (docs/PERF.md:357 "
+              f"records {C5_RECORDED_CLUSTERS} for cluster_large, a count, "
+              "not a gate); membership equal to the JAX package's (sha256)")
+    sigs = seen["sigs"]
+    vals, idx = seen["lists"]
+    if not np.array_equal(sigs[-2000:], oracle.minhash_signatures(
+            pep[-2000:], 4, 50, 0)):
+        raise AssertionError("config 5 signatures != oracle on [-2000:]")
+    rows = np.sort(np.random.default_rng(18).choice(n, 256, replace=False))
+    want_c, want_i = _stable_topk(sigs, rows, CONFIG5["top_k"])
+    if not np.array_equal(idx[rows], want_i) or not np.array_equal(
+            vals[rows], want_c / 50.0):
+        raise AssertionError("config 5 top-k != a host recount")
+    print("  cluster_large's top-k lists of 256 rows drawn with "
+          "default_rng(18) equal a stable host sort of host-counted "
+          "agreements of the card's signatures (ties lowest index first); "
+          "the signatures of the last 2,000 rows equal the oracle's")
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2122,6 +2484,7 @@ def main() -> int:
     phase_pipeline(h3n2_all, sims, long, lsims, exact_mem)
     sharded = phase_parallel(refs, allunique)
     phase_studies(h3n2, sims, evp_all, sims_e)
+    mandated = phase_mandated(sims)
     print("torch stages (no hand-written kernel), ms / bound ms / share: "
           + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
                       for k, (ms, b) in torch_stages.items()))
@@ -2133,7 +2496,8 @@ def main() -> int:
         "route": "cuda",
         "source": "dynaalign_torch/csrc/nw_gotoh.cu",
         "replaces": "dynaalign_tpu/ops/nw_pallas.py:302",
-        "launches": launches,
+        "launches": launches + sum(mandated.values()),
+        "launches_by_path": {"h3n2sample[:1000]": launches, **mandated},
         "launches_sharded": sharded["nw_gotoh"],
         "equal_to_plain": True,
         "max_abs_err": worst,

@@ -108,7 +108,8 @@ class MinHashEngine:
     signature, exactly as recomputation would give).  Calling it with a
     sequence outside the constructor set raises KeyError.  Every call
     returns a fresh array, which the caller may overwrite (``clusterbreak``
-    zeroes the entries under its threshold in place).
+    zeroes the entries under its threshold in place in the engine it
+    builds itself).
 
     Usage: ``clusterbreak(pep, sim_fn=MinHashEngine(pep, k=2))``, or leave
     ``sim_fn=None``: clusterbreak builds one itself.

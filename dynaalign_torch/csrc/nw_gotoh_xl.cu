@@ -78,9 +78,8 @@
 //   b-character loads coalesce; each lane fetches its next character, and
 //   lane 0 its next boundary cell, one step ahead.
 // * XL_QUEUE=0 builds the earlier schedule instead, one warp per pair in list
-//   order through nw_pair_sweep, for tools/nw_variants.py
-//   and chip_smoke.py to time beside the queue; it takes the same
-//   arguments and ignores the table.
+//   order through nw_pair_sweep, for tools/nw_variants.py to time beside
+//   the queue; it takes the same arguments and ignores the table.
 //
 // Bound on this card: NW_OPS_PER_CELL = 12 integer operations per DP cell,
 // NW_ALU_OPS_PER_CELL = 8 of them on the integer ALU lanes alone (derived

@@ -313,6 +313,38 @@ def test_clusterbreak_validation_and_max_itr():
     _same_result(got, dj.clusterbreak(seqs, **kw))
 
 
+def test_clusterbreak_leaves_a_cached_matrix_unchanged():
+    """A user sim_fn that hands back one cached writable matrix per subset
+    gets every one back unchanged across the recursion (a second run reads
+    the cache alone), and the labels equal the JAX package's clusterbreak
+    on the same input; only the in-package engines are thresholded in
+    place."""
+    seqs = load_sequences("evp_peparray", 200)
+    kw = dict(size_max=8, size_min=2, verbose=False)
+    cache = {}
+
+    def cached(x):
+        key = tuple(x)
+        if key not in cache:
+            cache[key] = dt.similarity_mh(x, k=2, n_hash=50, device="cpu")
+        return cache[key]
+
+    got = dt.clusterbreak(seqs, sim_fn=cached, **kw)
+    assert got.n_calls > 4 and len(cache) == got.n_calls
+    for key, sim in cache.items():
+        assert sim.flags.writeable
+        np.testing.assert_array_equal(
+            sim, dt.similarity_mh(list(key), k=2, n_hash=50, device="cpu"))
+    _same_result(dt.clusterbreak(seqs, sim_fn=cached, **kw), got)
+    _same_result(dt.Pipeline(sim_fn=cached).cluster(seqs, **kw), got)
+    _same_result(got, dj.clusterbreak(
+        seqs, sim_fn=lambda x: dj.similarity_mh(x, k=2, n_hash=50), **kw))
+    _same_result(got, dt.clusterbreak(seqs, device="cpu", **kw))
+    assert cb_mod._fresh_each_call(dt.Pipeline(device="cpu").similarity)
+    assert not cb_mod._fresh_each_call(dt.Pipeline(sim_fn=cached).similarity)
+    assert not cb_mod._fresh_each_call(cached)
+
+
 def test_clusterbreak_checkpoint_resume(tmp_path):
     """A run interrupted after its checkpoint resumes to the same result
     as an uninterrupted run, and as the JAX package's."""

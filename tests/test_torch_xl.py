@@ -427,8 +427,8 @@ def test_xl_source_empty_batch(xl_host):
 @pytest.mark.parametrize("nwd", NWDS)
 def test_xl_list_order_variant_equals_plain(tmp_path_factory, nwd):
     """The schedule the queue replaced (XL_QUEUE=0, one warp a pair in list
-    order), which tools/nw_variants.py and chip_smoke.py time beside it,
-    still computes the same function."""
+    order), which tools/nw_variants.py times beside it, still computes the
+    same function."""
     run = _xl_runner(build_host(tmp_path_factory.mktemp("xl_list"),
                                 "nw_gotoh_xl", _XL_LIST_SHIM))
     rng = np.random.default_rng(83)
