@@ -1,0 +1,6 @@
+"""Percent of the traced window in which the device ran nothing."""
+from portbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
