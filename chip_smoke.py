@@ -238,20 +238,22 @@ def kernel_vs_plain(dev, wrapper, cases) -> int:
     arguments; a fifth entry names the nw_gotoh instantiation that must
     have run."""
     from dynaalign_torch import blosum
-    from dynaalign_torch.ops import nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
+    from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     worst = 0
     for label, name, (go, ge), batch, *inst in cases:
         kw = batch[-1] if isinstance(batch[-1], dict) else {}
         args = _random_batch(dev, *batch[: len(batch) - bool(kw)], **kw)
         sub = blosum.get_matrix(name, device=dev)
+        profiling.reset()
         got = wrapper(*args, sub, gap_open=go, gap_ext=ge)
         torch.cuda.synchronize()
         ran = ""
         if inst:
-            ran = f" instance {nw_cuda.LAST_INSTANCE}"
-            if nw_cuda.LAST_INSTANCE != inst[0]:
+            ran = f" instance {nw_cuda.launches()[2]}"
+            if nw_cuda.launches()[2] != [inst[0]]:
                 raise AssertionError(f"{label}: ran{ran}, not {inst[0]}")
         ref = nw_similarity_batch(*args, sub, gap_open=go, gap_ext=ge)
         err = _max_err(got, ref)
@@ -397,15 +399,19 @@ def _best_ms(fn, calls=4):
 
 def _xl_table_text(a_len, b_len) -> str:
     """Pairs, queue items (strips) and the most strips of a pair of the
-    nw_gotoh_xl launch just made on the batch with these lengths; raises
-    unless the wrapper's table had that many items."""
+    nw_gotoh_xl launches made since the last profiling.reset(), all on the
+    batch with these lengths; raises unless each launch's table had that
+    many items."""
     from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     strips = nw_cuda.xl_strips(a_len, b_len, nw_cuda.XL_STRIP)
     items = int(strips.sum())
-    if nw_cuda.LAST_XL_ITEMS != items:
-        raise AssertionError(f"nw_gotoh_xl's table had "
-                             f"{nw_cuda.LAST_XL_ITEMS} items, not {items}")
+    launched = profiling.counters().get("nw_gotoh_xl.items", 0)
+    n_xl = nw_cuda.launches()[1]
+    if not n_xl or launched != items * n_xl:
+        raise AssertionError(f"nw_gotoh_xl's {n_xl} launch(es) "
+                             f"took {launched} items, not {items} each")
     return (f"{a_len.shape[0]} pairs, {items} queue items (strips of "
             f"{nw_cuda.XL_STRIP} rows; {int((strips > 1).sum())} pairs of "
             f"more than one, at most {int(strips.max())})")
@@ -779,21 +785,22 @@ def phase_hybrid(h3n2, sims, long, lsims, herv):
     )
     from dynaalign_torch.models import pipeline
     from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     print("[13] hybrid: MinHash prefilter, exact NW rescoring")
     n = len(h3n2)
     mh = similarity_mh(h3n2)
     if not np.array_equal(mh, oracle.minhash_similarity(h3n2, 4, 50, 0)):
         raise AssertionError("similarity_mh != oracle on h3n2sample[:1000]")
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     walls, dense = _best_of(lambda: similarity_hybrid(h3n2), repeat=2)
-    launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    launches = nw_cuda.launches()[:2]
     if launches[0] == 0 or launches[1]:
         raise AssertionError(f"hybrid launches {launches}: not nw_gotoh alone")
     t, kept = _check_hybrid(dense, mh, sims)
     print(f"  similarity_hybrid, h3n2sample[:1000]: threshold {t} keeps "
-          f"{kept} of {n * (n - 1) // 2} pairs; LAUNCHES rose by "
-          f"{launches[0] // 2} a call, LAUNCHES_XL by 0; kept entries equal "
+          f"{kept} of {n * (n - 1) // 2} pairs; {launches[0] // 2} "
+          "nw_gotoh launches a call, no nw_gotoh_xl; kept entries equal "
           f"to similarity_nw's, the rest 0, diagonal 1; wall s {walls}")
     if t <= 0:
         raise AssertionError("the sparse path drops pairs at MH 0: needs a "
@@ -810,16 +817,16 @@ def phase_hybrid(h3n2, sims, long, lsims, herv):
 
     nl = len(long)
     lmh = similarity_mh(long)
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     ldense = similarity_hybrid(long)
-    launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    launches = nw_cuda.launches()[:2]
     if launches[1] == 0 or launches[0]:
         raise AssertionError(f"hybrid launches {launches} on the long set: "
                              "not nw_gotoh_xl alone")
     t, kept = _check_hybrid(ldense, lmh, lsims)
     print(f"  similarity_hybrid, long set: threshold {t} keeps {kept} of "
-          f"{nl * (nl - 1) // 2} pairs; LAUNCHES_XL rose by {launches[1]}, "
-          "LAUNCHES by 0; kept entries equal to similarity_nw's")
+          f"{nl * (nl - 1) // 2} pairs; {launches[1]} nw_gotoh_xl "
+          "launch(es), no nw_gotoh; kept entries equal to similarity_nw's")
 
     # the viral-panel configuration at full size
     nh = len(herv)
@@ -996,7 +1003,6 @@ def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
     from dynaalign_torch.consensus import msa
     from dynaalign_torch.io.seqio import write_fasta
     from dynaalign_torch.models import pipeline as pmod
-    from dynaalign_torch.utils.profiling import Timings
 
     cb_mod = importlib.import_module("dynaalign_torch.cluster.clusterbreak")
 
@@ -1008,21 +1014,22 @@ def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
         similarity="mh", minhash=MinHashConfig(k=4, n_hash=500, seed=0),
         clusterbreak=ClusterBreakConfig(thresh_p=0.8, size_max=800,
                                         size_min=3)))
-    t = Timings()
-    with t.section("cluster", items=n):
-        c_stages, clusters = stage_times({
-            (pmod, "similarity_mh"): "similarity_mh",
-            (cb_mod, "quantile_threshold"): "quantile threshold",
-            (cb_mod, "netcluster"): "netcluster (Louvain)",
-        }, lambda: pipe.cluster(h3n2_all))
-    with t.section("consensus", items=len(clusters.clustered_seq)):
-        n_stages, consensus = stage_times({
-            (msa, "_kmer_distance"): "k-mer distance",
-            (msa, "_upgma_order"): "UPGMA",
-            (msa, "_profile_scores"): "profile scores (BLAS)",
-            (msa, "_row_dp"): "row DP (native)",
-            (msa, "_traceback_path"): "traceback",
-        }, lambda: pipe.consensus(clusters))
+    # both steps end in host arrays: the host clock holds their device work
+    t0 = time.perf_counter()
+    c_stages, clusters = stage_times({
+        (pmod, "similarity_mh"): "similarity_mh",
+        (cb_mod, "quantile_threshold"): "quantile threshold",
+        (cb_mod, "netcluster"): "netcluster (Louvain)",
+    }, lambda: pipe.cluster(h3n2_all))
+    t1 = time.perf_counter()
+    n_stages, consensus = stage_times({
+        (msa, "_kmer_distance"): "k-mer distance",
+        (msa, "_upgma_order"): "UPGMA",
+        (msa, "_profile_scores"): "profile scores (BLAS)",
+        (msa, "_row_dp"): "row DP (native)",
+        (msa, "_traceback_path"): "traceback",
+    }, lambda: pipe.consensus(clusters))
+    cluster_s, consensus_s = t1 - t0, time.perf_counter() - t1
     c3_dir = os.path.join(WORK, "c3")
     os.makedirs(c3_dir)
     cli._write_clusters_csv(os.path.join(c3_dir, "clusters.csv"),
@@ -1037,11 +1044,10 @@ def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
           f"duplicates: {clusters.n_calls} calls, "
           f"{len(clusters.clustered_seq)} clustered into {len(consensus)} "
           f"clusters, {len(clusters.filtered_seq)} filtered, converged="
-          f"{clusters.converged}; cluster {t.total('cluster'):.3f} s, "
-          f"consensus {t.total('consensus'):.3f} s, together "
-          f"{t.total('cluster') + t.total('consensus'):.3f} s = "
-          f"{n / (t.total('cluster') + t.total('consensus')):.1f} "
-          "sequences/s")
+          f"{clusters.converged}; cluster {cluster_s:.3f} s, "
+          f"consensus {consensus_s:.3f} s, together "
+          f"{cluster_s + consensus_s:.3f} s = "
+          f"{n / (cluster_s + consensus_s):.1f} sequences/s")
     print("  cluster step by step, s, " + _stage_text(c_stages))
     print("  consensus step by step, s, " + _stage_text(n_stages))
     if counts != C3_COUNTS:
@@ -1135,7 +1141,6 @@ def phase_pipeline(h3n2_all, sims, long, lsims, exact_mem):
           f"found all {len(before)} built libraries in place")
     print("  CLI wall s: " + ", ".join(f"{k} {v:.3f}"
                                        for k, v in clis.items()))
-    return t
 
 
 def _digest(*arrays) -> str:
@@ -1196,13 +1201,15 @@ def parallel_worker(mode: str, out_dir: str, store=None, rank=None) -> int:
     from dynaalign_torch import blosum, cluster_large
     from dynaalign_torch.encode import encode
     from dynaalign_torch.io.datasets import load_sequences
-    from dynaalign_torch.ops import minhash, nw_cuda
+    from dynaalign_torch.ops import minhash
     from dynaalign_torch.parallel import (
         allpairs as ap, distributed_init, make_mesh,
         sharded_minhash_similarity, sharded_minhash_topk,
         sharded_nw_allpairs, sharded_nw_allpairs_bucketed,
     )
     from dynaalign_torch.parallel.failures import clean_abort
+    from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     if not torch.cuda.is_available():
         print("chip_smoke worker: no CUDA device", file=sys.stderr)
@@ -1248,7 +1255,7 @@ def parallel_worker(mode: str, out_dir: str, store=None, rank=None) -> int:
             walls, digests = [], set()
             for _ in range(2):
                 seen.update(wait=0.0, gather=0.0, pairs=0)
-                nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+                profiling.reset()
                 dist.barrier(group=mesh.group)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1261,7 +1268,7 @@ def parallel_worker(mode: str, out_dir: str, store=None, rank=None) -> int:
                 raise AssertionError(f"rank {me}: {name} differs between "
                                      "two calls")
             report["results"][name] = digests.pop()
-            launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+            launches = nw_cuda.launches()[:2]
             report["launches"][name] = launches
             wall = walls[1]
             report["lines"].append(
@@ -1488,6 +1495,7 @@ def phase_studies(h3n2, sims, evp_all, evp_nw) -> None:
     )
     from dynaalign_torch.io.datasets import load_dataset, load_sequences
     from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     print("[17] acceptance studies on real data, goldens and the "
           "getting-started example")
@@ -1495,12 +1503,12 @@ def phase_studies(h3n2, sims, evp_all, evp_nw) -> None:
     _goldens()
 
     seqs = h3n2[:12]
-    nw_cuda.LAUNCHES = 0
+    profiling.reset()
     got = similarity_nw(seqs)
-    if nw_cuda.LAUNCHES == 0 or not np.array_equal(
-            got, oracle.nw_similarity(seqs)):
+    n_gotoh = nw_cuda.launches()[0]
+    if n_gotoh == 0 or not np.array_equal(got, oracle.nw_similarity(seqs)):
         raise AssertionError("NW on h3n2sample[:12] != oracle")
-    print(f"  similarity_nw, h3n2sample[:12]: {nw_cuda.LAUNCHES} nw_gotoh "
+    print(f"  similarity_nw, h3n2sample[:12]: {n_gotoh} nw_gotoh "
           "launch(es), bit-exact vs the oracle")
     seqs = evp_all[:200]
     if not np.array_equal(similarity_mh(seqs, k=2, n_hash=50, seed=0),
@@ -1715,6 +1723,7 @@ def mandated_run(label: str, call, items: int, unit: str, timings=None):
     unless both calls give equal results.  Returns (the timed call's
     result, its nw_gotoh launches, their Σ kernel ms)."""
     from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.utils import profiling
 
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # by earlier phases' tensors
@@ -1722,14 +1731,14 @@ def mandated_run(label: str, call, items: int, unit: str, timings=None):
     for timed in (False, True):
         if timings is not None:
             timings.clear()
-        nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+        profiling.reset()
         with nw_gotoh_events() as events:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs.append(call())
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        launches.append((nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL))
+        launches.append(nw_cuda.launches()[:2])
         if timed:
             kernel_ms = sum(a.elapsed_time(b) for a, b in events)
             stages = dict(timings or {})
@@ -1958,6 +1967,7 @@ def main() -> int:
     from dynaalign_torch.ops import _build, nw_cuda
     from dynaalign_torch.ops.nw import nw_similarity_batch
     from dynaalign_torch.tools import probe_misalign as probe
+    from dynaalign_torch.utils import profiling
 
     t_start = time.perf_counter()
     global OPS_PER_CELL, ALU_OPS_PER_CELL
@@ -2083,7 +2093,7 @@ def main() -> int:
     # runs it at its real widths, against the oracle)
     def nw_gotoh_xl_two_words(*args, gap_open, gap_ext):
         return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
-                            xl_words=2)[0]
+                            xl_words=2)
 
     worst_xl = max(worst_xl, kernel_vs_plain(
         dev, nw_gotoh_xl_two_words,
@@ -2093,21 +2103,21 @@ def main() -> int:
     print("[5] main path: similarity_nw on h3n2sample[:1000]")
     h3n2 = load_sequences("h3n2sample", limit=1000)
     n = len(h3n2)
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     t0 = time.perf_counter()
     sims = similarity_nw(h3n2)
     first_s = time.perf_counter() - t0
-    launches = nw_cuda.LAUNCHES
-    if launches == 0 or nw_cuda.LAUNCHES_XL:
+    launches = nw_cuda.launches()[0]
+    if launches == 0 or nw_cuda.launches()[1]:
         raise AssertionError("the main path did not run on nw_gotoh alone")
     check_result(sims, h3n2, [range(24), range(n - 24, n)])
     print(f"  n=1000: {launches} nw_gotoh launches, first call "
           f"{first_s:.3f} s, bit-exact vs the oracle on [:24, :24] and "
           "[-24:, -24:]")
     evp = load_sequences("evp_peparray", limit=160)
-    nw_cuda.LAUNCHES = 0
+    profiling.reset()
     sims_e = similarity_nw(evp)
-    evp_launches = nw_cuda.LAUNCHES
+    evp_launches = nw_cuda.launches()[0]
     if evp_launches == 0 or not np.array_equal(
         sims_e, oracle.nw_similarity(evp)
     ):
@@ -2118,18 +2128,20 @@ def main() -> int:
     ne = len(evp_all)
     elens = np.array([len(s) for s in evp_all], dtype=np.float64)
     ecells = (elens.sum() ** 2 + (elens ** 2).sum()) / 2
-    nw_cuda.LAUNCHES = 0
+    profiling.reset()
     ewalls = []
     for _ in range(3):
         t0 = time.perf_counter()
         sims_e = similarity_nw(evp_all)
         ewalls.append(time.perf_counter() - t0)
     check_result(sims_e, evp_all, [range(24), range(ne - 24, ne)])
+    n_gotoh, _, insts = nw_cuda.launches()
     print(f"  evp_peparray, all {ne} sequences of {elens.min():.0f}-"
           f"{elens.max():.0f} aa ({ne * (ne + 1) // 2} pairs, {ecells:.4e} "
-          f"cells): {nw_cuda.LAUNCHES // 3} launch(es) a call of nw_gotoh "
-          f"instance {nw_cuda.LAST_INSTANCE} "
-          f"{nw_cuda.INSTANCES[nw_cuda.LAST_INSTANCE]}; similarity_nw wall s"
+          f"cells): {n_gotoh // 3} launch(es) a call of nw_gotoh "
+          f"instance {insts} "
+          f"{[nw_cuda.INSTANCES[k] for k in insts]}; similarity_nw "
+          f"wall s"
           f": {ewalls}; best {min(ewalls):.4f} s; equal to the oracle on "
           "[:24, :24] and [-24:, -24:]")
 
@@ -2197,13 +2209,14 @@ def main() -> int:
     chunk_cells = float((chunk[1].double() * chunk[3].double()).sum())
     nbytes = 4 * (2 * bsz * m + 2 * bsz + 32 * 32 + 2 * bsz)
     bound_ms, bound_by, old_ms = _bound(chunk_cells, nbytes)
+    profiling.reset()
     kernel_ms, _ = _event_ms(
         lambda: nw_cuda.nw_similarity_batch_cuda(*chunk, sub), repeat=3
     )
     bound_text = (f"{ALU_OPS_PER_CELL} ALU-only ops per cell at "
                   f"{ALU_OPS_PER_S:.4e}/s against {OPS_PER_CELL} at the "
                   f"issue rate {SCHED_OPS_PER_S:.4e}/s")
-    print(f"  nw_gotoh instance {nw_cuda.LAST_INSTANCE}, one chunk (B={bsz}, "
+    print(f"  nw_gotoh instance {nw_cuda.launches()[2]}, one chunk (B={bsz}, "
           f"M=N={m}, {chunk_cells:.4e} cells): {kernel_ms:.3f} ms; bound "
           f"{bound_ms:.3f} ms by {bound_by} ({bound_text}; {nbytes} bytes at "
           f"{HBM_BYTES_PER_S:.3e} B/s) = {bound_ms / kernel_ms:.4f} of the "
@@ -2217,6 +2230,7 @@ def main() -> int:
     # after another, each by CUDA events (their mean is the reading of
     # earlier runs); the wrapper's work table alone; then the launch alone
     xl_calls = []
+    profiling.reset()
     for _ in range(3):
         ms, xl_got = _event_ms(
             lambda: nw_cuda.nw_similarity_batch_cuda_xl(*chunk, sub))
@@ -2230,9 +2244,10 @@ def main() -> int:
           f"bound ({old_ms / xl_chunk_ms:.4f} of the older), "
           f"{xl_chunk_ms / kernel_ms:.2f}x nw_gotoh's time; equal to plain; "
           + _xl_table_text(chunk[1], chunk[3]))
+    chunk_items = int(nw_cuda.xl_strips(chunk[1], chunk[3],
+                                        nw_cuda.XL_STRIP).sum())
     table_ms, _ = _event_ms(lambda: nw_cuda.xl_work_table(
-        chunk[1], chunk[3], nw_cuda.XL_STRIP, nw_cuda.LAST_XL_ITEMS),
-        repeat=3)
+        chunk[1], chunk[3], nw_cuda.XL_STRIP, chunk_items), repeat=3)
     chunk_launch_ms, chunk_out = xl_launch(chunk)
     if not _equal(chunk_out, first_ref):
         raise AssertionError("nw_gotoh_xl launched alone != plain, first "
@@ -2256,14 +2271,14 @@ def main() -> int:
     lcells = (llens.sum() ** 2 + (llens ** 2).sum()) / 2
     print(f"  {nl} sequences of {llens.min():.0f}-{llens.max():.0f} aa "
           f"(mean {llens.mean():.2f}), {lpairs} pairs, {lcells:.4e} cells")
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     t0 = time.perf_counter()
     lsims = similarity_nw(long)
     lfirst_s = time.perf_counter() - t0
-    launches_xl = nw_cuda.LAUNCHES_XL
-    if launches_xl == 0 or nw_cuda.LAUNCHES:
+    launches_xl = nw_cuda.launches()[1]
+    if launches_xl == 0 or nw_cuda.launches()[0]:
         raise AssertionError("the long path did not run on nw_gotoh_xl alone"
-                             f" ({nw_cuda.LAUNCHES}, {launches_xl})")
+                             f" {nw_cuda.launches()[:2]}")
     t0 = time.perf_counter()
     check_result(lsims, long, [range(16)])
     lor_s = time.perf_counter() - t0
@@ -2287,6 +2302,7 @@ def main() -> int:
     liu = torch.triu_indices(nl, nl, device=dev)
     largs = _pair_batch(lidx, lln, *liu)
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
+    profiling.reset()
     xl_all_ms, lgot = _event_ms(
         lambda: nw_cuda.nw_similarity_batch_cuda_xl(*largs, sub), repeat=3)
     liu_np = np.triu_indices(nl)
@@ -2337,6 +2353,7 @@ def main() -> int:
     for label, batch, ref in (("all pairs", largs, lgot),
                               ("every fourth pair", qargs, qref),
                               ("the longest pair", one, None)):
+        profiling.reset()
         ms, out = xl_launch(batch)
         if ref is None:  # the longest pair: against similarity_nw's value
             if out.similarity()[0] != lsims[liu_np[0][top], liu_np[1][top]]:
@@ -2362,11 +2379,11 @@ def main() -> int:
     mixed = mixed_set()
     nm = len(mixed)
     mlens = [len(s) for s in mixed]
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     t0 = time.perf_counter()
     msims = similarity_nw_bucketed(mixed)
     m_s = time.perf_counter() - t0
-    mixed_launches = (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL)
+    mixed_launches = nw_cuda.launches()[:2]
     if min(mixed_launches) == 0:
         raise AssertionError(f"bucketed launches {mixed_launches}: not both")
     t0 = time.perf_counter()
@@ -2392,18 +2409,18 @@ def main() -> int:
         seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=k))
                 for k in [la, lb_] * 4]
         pi, pj = np.arange(0, 8, 2), np.arange(1, 8, 2)
-        nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+        profiling.reset()
         t0 = time.perf_counter()
         got = nw_rescore_pairs(seqs, pi, pj)
         r_s = time.perf_counter() - t0
         ref = [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)]
-        if not np.array_equal(got, ref) or nw_cuda.LAUNCHES_XL == 0:
+        if not np.array_equal(got, ref) or nw_cuda.launches()[1] == 0:
             raise AssertionError(f"nw_rescore_pairs {la} x {lb_} != oracle")
         words = _build.load("nw_gotoh_xl").nw_gotoh_xl_words(
             max(la, lb_), max(la, lb_))  # both sides padded to the longest
         print(f"  4 pairs of {la} x {lb_} aa (m+n = {la + lb_}, MT/LN in "
               f"{words} word(s)): "
-              f"{nw_cuda.LAUNCHES_XL} nw_gotoh_xl launch(es), {r_s:.3f} s; "
+              f"{nw_cuda.launches()[1]} nw_gotoh_xl launch(es), {r_s:.3f} s; "
               f"equal to the oracle pair by pair: {got.tolist()}")
         # the kernel alone on the batch nw_rescore_pairs launched: all
         # sequences padded to the longest, pairs (pi, pj)
@@ -2412,6 +2429,7 @@ def main() -> int:
         rln = torch.from_numpy(renc.lengths).to(dev)
         rargs = _pair_batch(ridx, rln, torch.from_numpy(pi).to(dev),
                             torch.from_numpy(pj).to(dev))
+        profiling.reset()
         ms, out = xl_launch(rargs)
         if not np.array_equal(out.similarity(), got):
             raise AssertionError(f"{la} x {lb_}: kernel alone != "
@@ -2425,7 +2443,7 @@ def main() -> int:
     print("[10] shift probe (probe_shift)")
     clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     seed = probe.seed_plane(dev)
-    probe.LAUNCHES = 0
+    profiling.reset()
     per_kind, probe_err = {}, 0
     for k in probe.KINDS:
         for n in (64, 2001):
@@ -2447,7 +2465,7 @@ def main() -> int:
               f"{grid['sms_covered']} of {grid['sms']} SMs covered")
         if grid["sms_covered"] < 128:
             raise AssertionError(f"the probe's grid covers only {grid}")
-    probe_launches = probe.LAUNCHES
+    probe_launches = profiling.counters()["probe_shift"]
     for k in ("shfl", "mis"):
         print(f"  {k} - base: {per_kind[k] - per_kind['base']:.3f} ns/step")
     steps = 20000

@@ -33,6 +33,7 @@ from .ops.minhash import (
     signature_agreement_counts,
     signature_similarity,
 )
+from .utils.profiling import span
 
 # most pairs per kernel launch
 DEFAULT_CHUNK = 1 << 17
@@ -83,13 +84,16 @@ def similarity_mh(
     """
     _check_mh_args(sequences, k, n_hash)
     dev = _resolve_device(device)
-    enc = encode(sequences, validate=False)  # MH hashes raw bytes; any
-    # character is hashable (the reference accepts arbitrary strings too)
-    sigs = minhash_signatures(
-        enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
-        device=dev,
-    )
-    return signature_similarity(sigs, block=block)
+    with span("similarity_mh"):
+        with span("mh.encode"):
+            # MH hashes raw bytes; any character is hashable (the
+            # reference accepts arbitrary strings too)
+            enc = encode(sequences, validate=False)
+        sigs = minhash_signatures(
+            enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed,
+            chunk=chunk, device=dev,
+        )
+        return signature_similarity(sigs, block=block)
 
 
 class MinHashEngine:
@@ -129,7 +133,8 @@ class MinHashEngine:
     ):
         _check_mh_args(sequences, k, n_hash)
         dev = _resolve_device(device)
-        enc = encode(sequences, validate=False)
+        with span("mh.encode"):
+            enc = encode(sequences, validate=False)
         sigs = minhash_signatures(
             enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed,
             chunk=chunk, device=dev,
@@ -210,7 +215,7 @@ class MinHashEngine:
 
 
 def _ratio(matches: np.ndarray, length: np.ndarray) -> np.ndarray:
-    with np.errstate(invalid="ignore", divide="ignore"):
+    with span("nw.ratio"), np.errstate(invalid="ignore", divide="ignore"):
         return matches.astype(np.float64) / length
 
 
@@ -221,16 +226,20 @@ def _gather(idx_a, len_a, idx_b, len_b, r, c):
 
 def _fetch(mt, ln):
     """The launches' results as two host arrays, in one copy each."""
-    return torch.cat(mt).cpu().numpy(), torch.cat(ln).cpu().numpy()
+    with span("nw.fetch") as sp:
+        mt, ln = torch.cat(mt).cpu().numpy(), torch.cat(ln).cpu().numpy()
+        sp["bytes"] = mt.nbytes + ln.nbytes
+    return mt, ln
 
 
 def _fill(n: int, vals: np.ndarray) -> np.ndarray:
     """Symmetric [n, n] matrix from its row-major upper triangle
     (src/pairwiseSeqAlign.cpp:349-350)."""
-    iu_np = np.triu_indices(n)
-    sims = np.zeros((n, n), dtype=np.float64)
-    sims[iu_np] = vals
-    sims.T[iu_np] = vals
+    with span("nw.fill"):
+        iu_np = np.triu_indices(n)
+        sims = np.zeros((n, n), dtype=np.float64)
+        sims[iu_np] = vals
+        sims.T[iu_np] = vals
     return sims
 
 
@@ -245,9 +254,10 @@ def _pairs_nw(idx_a, len_a, idx_b, len_b, rows, cols, sub, gap_open,
     n_launch = -(-rows.numel() // chunk)
     mt, ln = [], []
     for k, s in enumerate(range(0, rows.numel(), chunk)):
-        batch = _gather(idx_a, len_a, idx_b, len_b, rows[s : s + chunk],
-                        cols[s : s + chunk])
-        res = nw_batch(*batch, sub, gap_open=gap_open, gap_ext=gap_ext)
+        with span("nw.launch"):
+            batch = _gather(idx_a, len_a, idx_b, len_b, rows[s : s + chunk],
+                            cols[s : s + chunk])
+            res = nw_batch(*batch, sub, gap_open=gap_open, gap_ext=gap_ext)
         mt.append(res.matches)
         ln.append(res.length)
         if progress:
@@ -281,13 +291,16 @@ def similarity_nw(
         raise ValueError("Input sequences vector cannot be empty")
     dev = _resolve_device(device)
     sub = blosum.get_matrix(matrix_name, device=dev)
-    enc = encode(sequences)
-    idx = torch.from_numpy(enc.indices).to(dev)
-    lens = torch.from_numpy(enc.lengths).to(dev)
-    iu = torch.triu_indices(n, n, device=dev)  # row-major, rows <= cols
-    mt, ln = _pairs_nw(idx, lens, idx, lens, iu[0], iu[1], sub, gap_open,
-                       gap_ext, chunk or DEFAULT_CHUNK, progress)
-    return _fill(n, _ratio(mt, ln))
+    with span("similarity_nw"):
+        with span("nw.encode"):
+            enc = encode(sequences)
+            idx = torch.from_numpy(enc.indices).to(dev)
+            lens = torch.from_numpy(enc.lengths).to(dev)
+            iu = torch.triu_indices(n, n, device=dev)  # row-major, i <= j
+        mt, ln = _pairs_nw(idx, lens, idx, lens, iu[0], iu[1], sub,
+                           gap_open, gap_ext, chunk or DEFAULT_CHUNK,
+                           progress)
+        return _fill(n, _ratio(mt, ln))
 
 
 def similarity_nw_bucketed(
@@ -315,15 +328,16 @@ def similarity_nw_bucketed(
         raise ValueError("Input sequences vector cannot be empty")
     dev = _resolve_device(device)
     sub = blosum.get_matrix(matrix_name, device=dev)
-    buckets = bucket_by_length(seqs, bucket_edges=bucket_edges)
-    which = np.zeros(n, dtype=np.int64)  # global index -> bucket id
-    local = np.zeros(n, dtype=np.int64)  # global index -> index in bucket
-    on_dev = []
-    for b, (pos, enc_b) in enumerate(buckets):
-        which[pos] = b
-        local[pos] = np.arange(len(pos))
-        on_dev.append((torch.from_numpy(enc_b.indices).to(dev),
-                       torch.from_numpy(enc_b.lengths).to(dev)))
+    with span("nw.encode"):
+        buckets = bucket_by_length(seqs, bucket_edges=bucket_edges)
+        which = np.zeros(n, dtype=np.int64)  # global index -> bucket id
+        local = np.zeros(n, dtype=np.int64)  # global index -> index in it
+        on_dev = []
+        for b, (pos, enc_b) in enumerate(buckets):
+            which[pos] = b
+            local[pos] = np.arange(len(pos))
+            on_dev.append((torch.from_numpy(enc_b.indices).to(dev),
+                           torch.from_numpy(enc_b.lengths).to(dev)))
 
     gi, gj = np.triu_indices(n)  # includes the diagonal, like the reference
     group = which[gi] * len(buckets) + which[gj]
@@ -336,8 +350,9 @@ def similarity_nw_bucketed(
         cols = torch.from_numpy(local[gj[sel]]).to(dev)
         mt, ln = _pairs_nw(*on_dev[ba], *on_dev[bb], rows, cols, sub,
                            gap_open, gap_ext, chunk or DEFAULT_CHUNK)
-        matches[gi[sel], gj[sel]] = mt
-        length[gi[sel], gj[sel]] = ln
-        matches[gj[sel], gi[sel]] = mt
-        length[gj[sel], gi[sel]] = ln
+        with span("nw.fill"):
+            matches[gi[sel], gj[sel]] = mt
+            length[gi[sel], gj[sel]] = ln
+            matches[gj[sel], gi[sel]] = mt
+            length[gj[sel], gi[sel]] = ln
     return _ratio(matches, length)

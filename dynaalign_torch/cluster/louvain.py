@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 from scipy import sparse
 
+from ..utils.profiling import span
 from ._native import native_louvain_pass
 
 
@@ -281,46 +282,48 @@ def louvain(
         vectorized synchronous pass (default ``_SYNC_THRESHOLD``; tests
         pass 0 to force the large-graph path on small graphs).
     """
-    A = sparse.csr_matrix(adj, dtype=np.float64)
-    n0 = A.shape[0]
-    rng = np.random.default_rng(seed)
+    with span("louvain"):
+        A = sparse.csr_matrix(adj, dtype=np.float64)
+        n0 = A.shape[0]
+        rng = np.random.default_rng(seed)
 
-    mapping = np.arange(n0, dtype=np.int64)  # original node -> current node
-    A_top = A.copy()
-    levels = 0
-    while True:
-        levels += 1
-        strengths = np.asarray(A.sum(axis=1)).ravel() + A.diagonal()
-        two_m = strengths.sum()
-        if two_m == 0:
-            break
-        thr = (
-            _SYNC_THRESHOLD if sync_threshold is None else sync_threshold
-        )
-        if A.shape[0] > thr:
-            comm = _one_level_synchronous(
-                A.indptr, A.indices, A.data, strengths, two_m,
-                resolution, rng,
+        # original node -> current node
+        mapping = np.arange(n0, dtype=np.int64)
+        A_top = A.copy()
+        levels = 0
+        while True:
+            levels += 1
+            strengths = np.asarray(A.sum(axis=1)).ravel() + A.diagonal()
+            two_m = strengths.sum()
+            if two_m == 0:
+                break
+            thr = (
+                _SYNC_THRESHOLD if sync_threshold is None else sync_threshold
             )
-        else:
-            comm = _one_level(
-                A.indptr, A.indices, A.data, strengths, two_m,
-                resolution, rng,
+            if A.shape[0] > thr:
+                comm = _one_level_synchronous(
+                    A.indptr, A.indices, A.data, strengths, two_m,
+                    resolution, rng,
+                )
+            else:
+                comm = _one_level(
+                    A.indptr, A.indices, A.data, strengths, two_m,
+                    resolution, rng,
+                )
+            uniq, dense = np.unique(comm, return_inverse=True)
+            n_comms = len(uniq)
+            mapping = dense[mapping]
+            if n_comms == A.shape[0] or levels >= max_levels:
+                break
+            # Phase 2: aggregate graph — community -> super-node
+            proj = sparse.csr_matrix(
+                (np.ones(A.shape[0]), (np.arange(A.shape[0]), dense)),
+                shape=(A.shape[0], n_comms),
             )
-        uniq, dense = np.unique(comm, return_inverse=True)
-        n_comms = len(uniq)
-        mapping = dense[mapping]
-        if n_comms == A.shape[0] or levels >= max_levels:
-            break
-        # Phase 2: aggregate graph — community -> super-node
-        proj = sparse.csr_matrix(
-            (np.ones(A.shape[0]), (np.arange(A.shape[0]), dense)),
-            shape=(A.shape[0], n_comms),
-        )
-        A = (proj.T @ A @ proj).tocsr()
-        A.sum_duplicates()
+            A = (proj.T @ A @ proj).tocsr()
+            A.sum_duplicates()
 
-    q = modularity(A_top, mapping, resolution)
-    return LouvainResult(
-        membership=mapping, modularity=q, n_levels=levels
-    )
+        q = modularity(A_top, mapping, resolution)
+        return LouvainResult(
+            membership=mapping, modularity=q, n_levels=levels
+        )

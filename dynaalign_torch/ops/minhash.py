@@ -32,6 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.mt19937 import hash_family_seeds
+from ..utils.profiling import span
 from .murmur3 import murmur3_kmer_hashes, seeds_tensor
 
 # most bytes of one chunk's [chunk, P, H] int32 hash tensor; eager PyTorch
@@ -86,12 +87,13 @@ def minhash_signatures(
         return torch.full((n, n_hash), -1, dtype=torch.int32, device=dev)
     if chunk is None:
         chunk = max(1, HASH_BYTES // (4 * (length - k + 1) * n_hash))
-    seeds = seeds_tensor(hash_family_seeds(n_hash, seed), dev)
-    return torch.cat([
-        _signatures_chunk(ascii_tokens[s : s + chunk],
-                          lengths[s : s + chunk], seeds, k)
-        for s in range(0, n, chunk)
-    ])
+    with span("mh.signatures"):
+        seeds = seeds_tensor(hash_family_seeds(n_hash, seed), dev)
+        return torch.cat([
+            _signatures_chunk(ascii_tokens[s : s + chunk],
+                              lengths[s : s + chunk], seeds, k)
+            for s in range(0, n, chunk)
+        ])
 
 
 def signatures_to_numpy(sigs: torch.Tensor) -> np.ndarray:
@@ -138,20 +140,25 @@ def signature_agreement_counts(
     sigs = as_signatures(sigs, device)
     n, n_hash = sigs.shape
     block = block or row_block(n, n_hash)
-    out = torch.empty((n, n), dtype=torch.int32, device=sigs.device)
-    for s in range(0, n, block):
-        out[s : s + block] = block_counts(sigs, s, min(s + block, n))
+    with span("mh.compare"):
+        out = torch.empty((n, n), dtype=torch.int32, device=sigs.device)
+        for s in range(0, n, block):
+            out[s : s + block] = block_counts(sigs, s, min(s + block, n))
     return out
 
 
 def fetch_counts(counts: torch.Tensor) -> np.ndarray:
     """The [N, N] counts as a host array, in one copy."""
-    return counts.cpu().numpy()
+    with span("mh.fetch") as sp:
+        out = counts.cpu().numpy()
+        sp["bytes"] = out.nbytes
+    return out
 
 
 def counts_to_similarity(counts: np.ndarray, n_hash: int) -> np.ndarray:
-    sims = counts.astype(np.float64) / float(n_hash)
-    np.fill_diagonal(sims, 1.0)
+    with span("mh.similarity"):
+        sims = counts.astype(np.float64) / float(n_hash)
+        np.fill_diagonal(sims, 1.0)
     return sims
 
 

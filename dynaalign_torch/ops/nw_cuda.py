@@ -5,8 +5,11 @@ The counterparts of the JAX package's ``ops/nw_pallas.py``, where both TPU
 wrappers live too: same signature and result as the plain version
 :func:`dynaalign_torch.ops.nw.nw_similarity_batch`.  Each wrapper alone
 decides where a batch runs: a CUDA tensor always goes to its kernel, a CPU
-tensor to the plain version, anything else raises.  ``LAUNCHES`` and
-``LAUNCHES_XL`` count the two kernels' launches.  ``nw_gotoh_xl`` takes its
+tensor to the plain version, anything else raises.  Each launch is a
+span of :mod:`..utils.profiling` named for its kernel, which counts it;
+:func:`launches` reads those counts back, and the counter
+``nw_gotoh_xl.items`` holds the work items launched.  The checks each
+launch waits in are the span ``nw_gotoh.check``.  ``nw_gotoh_xl`` takes its
 work from a table of (pair, strip) items, longest pair first, which
 :func:`xl_work_table` builds on the card.
 
@@ -27,14 +30,9 @@ import re
 
 import torch
 
+from ..utils.profiling import counters, span
 from . import _build
 from .nw import NWResult, nw_similarity_batch
-
-LAUNCHES = 0  # nw_gotoh launches in this process; reset to 0 to count a run
-LAUNCHES_XL = 0  # nw_gotoh_xl launches, likewise
-
-LAST_INSTANCE = None  # the INSTANCES index of the last nw_gotoh launch
-LAST_XL_ITEMS = None  # work items (strips) of the last nw_gotoh_xl launch
 
 # Largest padded max(m, n)+1 that nw_gotoh takes: the range of the TPU
 # kernel it ports, the JAX package's PALLAS_MAX_MP1 (ops/nw_pallas.py).
@@ -149,7 +147,6 @@ def prepare_xl(lib, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
     sync).  Returns (go, result): go() zeroes the counter and the progress
     words and launches the kernel, which writes ``result``; it may be
     called again, so a timing loop can time the launch alone."""
-    global LAST_XL_ITEMS
     bsz, m = a_idx.shape
     n = b_idx.shape[1]
     dev = a_idx.device
@@ -165,11 +162,10 @@ def prepare_xl(lib, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
     out_ln = torch.empty(bsz, dtype=torch.int32, device=dev)
     sub_t = sub.t().contiguous()  # the kernels read the table as [b][a]
     fn = bind(lib, "nw_gotoh_xl")
-    LAST_XL_ITEMS = n_items
 
     def go():
         sync.zero_()
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), span("nw_gotoh_xl", items=n_items):
             rc = fn(a_idx.data_ptr(), a_len.data_ptr(), b_idx.data_ptr(),
                     b_len.data_ptr(), sub_t.data_ptr(), bsz, m, n, gap_open,
                     gap_ext, nwd, items.data_ptr(), n_items,
@@ -253,10 +249,9 @@ def _check_values(a_idx, a_len, b_idx, b_len, sub,
 def _run(name, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
          xl_words=0):
     """Check, then the plain version for CPU tensors or kernel ``name``
-    for CUDA tensors.  Returns (result, launched).  ``xl_words``: 0 lets
-    nw_gotoh_xl's launcher carry MT and LN in one word or two by the width;
-    2 makes it two at any width (for the checks of that instantiation)."""
-    global LAST_INSTANCE
+    for CUDA tensors.  ``xl_words``: 0 lets nw_gotoh_xl's launcher carry
+    MT and LN in one word or two by the width; 2 makes it two at any width
+    (for the checks of that instantiation)."""
     _check_inputs(a_idx, a_len, b_idx, b_len, sub)
     dev = a_idx.device
     if dev.type not in ("cpu", "cuda"):
@@ -268,37 +263,50 @@ def _run(name, a_idx, a_len, b_idx, b_len, sub, gap_open, gap_ext,
     n = b_idx.shape[1]
     xl = name == "nw_gotoh_xl" and dev.type == "cuda"
     strip = _library(name).nw_gotoh_xl_strip_rows() if xl and bsz else 0
-    a_max, n_items = (_check_values(a_idx, a_len, b_idx, b_len, sub, strip)
-                      if bsz else (0, 0))
+    a_max, n_items = 0, 0
+    if bsz:
+        with span("nw_gotoh.check"):
+            a_max, n_items = _check_values(a_idx, a_len, b_idx, b_len, sub,
+                                           strip)
     if dev.type == "cpu":
         return nw_similarity_batch(
             a_idx, a_len, b_idx, b_len, sub,
             gap_open=gap_open, gap_ext=gap_ext,
-        ), False
+        )
     if bsz == 0:
         empty = torch.empty(0, dtype=torch.int32, device=dev)
-        return NWResult(empty, empty.clone()), False
+        return NWResult(empty, empty.clone())
     if xl:
         return launch_xl(_library(name), a_idx, a_len, b_idx, b_len, sub,
-                         gap_open, gap_ext, xl_words, n_items), True
+                         gap_open, gap_ext, xl_words, n_items)
     if max(m, n) + 1 > MAX_MP1:
         raise ValueError(
             f"nw_gotoh takes padded max(M, N)+1 <= {MAX_MP1}, got M={m}, "
             f"N={n}; nw_similarity_batch_cuda_xl takes any width")
-    LAST_INSTANCE = pick_instance(a_max)
+    inst = pick_instance(a_max)
     out_mt = torch.empty(bsz, dtype=torch.int32, device=dev)
     out_ln = torch.empty(bsz, dtype=torch.int32, device=dev)
     sub_t = sub.t().contiguous()  # the kernels read the table as [b][a]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span(name, **{f"instance{inst}": 1}):
         rc = bind(_library(name), name)(
             a_idx.data_ptr(), a_len.data_ptr(), b_idx.data_ptr(),
             b_len.data_ptr(), sub_t.data_ptr(), bsz, m, n, gap_open, gap_ext,
-            LAST_INSTANCE, a_max, out_mt.data_ptr(), out_ln.data_ptr(),
+            inst, a_max, out_mt.data_ptr(), out_ln.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return NWResult(out_mt, out_ln), True
+    return NWResult(out_mt, out_ln)
+
+
+def launches() -> tuple[int, int, list[int]]:
+    """Launches since the last ``profiling.reset()``: of ``nw_gotoh``, of
+    ``nw_gotoh_xl``, and the sorted ``INSTANCES`` indices ``nw_gotoh``
+    launched."""
+    c = counters()
+    prefix = "nw_gotoh.instance"
+    return (c.get("nw_gotoh", 0), c.get("nw_gotoh_xl", 0),
+            sorted(int(k[len(prefix):]) for k in c if k.startswith(prefix)))
 
 
 def nw_similarity_batch_cuda(
@@ -314,11 +322,8 @@ def nw_similarity_batch_cuda(
     """(matches, alignment_length) per pair: through ``nw_gotoh`` (a group
     of lanes per pair, padded max(M, N)+1 <= MAX_MP1) for CUDA tensors, the
     plain version for CPU tensors."""
-    global LAUNCHES
-    res, launched = _run("nw_gotoh", a_idx, a_len, b_idx, b_len, sub,
-                         gap_open, gap_ext)
-    LAUNCHES += launched
-    return res
+    return _run("nw_gotoh", a_idx, a_len, b_idx, b_len, sub, gap_open,
+                gap_ext)
 
 
 def nw_similarity_batch_cuda_xl(
@@ -334,8 +339,5 @@ def nw_similarity_batch_cuda_xl(
     """(matches, alignment_length) per pair: through ``nw_gotoh_xl`` (a
     queue of strips, longest pair first, a warp a strip; for long pairs, any
     length) for CUDA tensors, the plain version for CPU tensors."""
-    global LAUNCHES_XL
-    res, launched = _run("nw_gotoh_xl", a_idx, a_len, b_idx, b_len, sub,
-                         gap_open, gap_ext)
-    LAUNCHES_XL += launched
-    return res
+    return _run("nw_gotoh_xl", a_idx, a_len, b_idx, b_len, sub, gap_open,
+                gap_ext)

@@ -19,6 +19,7 @@ from scipy import sparse
 
 from ..device import resolve_device
 from ..encode import encode
+from ..utils.profiling import span
 from .minhash import (
     as_signatures,
     block_counts,
@@ -37,13 +38,14 @@ def _topk_block(sigs: torch.Tensor, start: int, stop: int, k: int):
     within a row, so it does not matter how ``torch.topk`` orders ties.
     """
     n = sigs.shape[0]
-    counts = block_counts(sigs, start, stop).to(torch.int64)  # [b, N]
-    rows = torch.arange(stop - start, device=sigs.device)
-    counts[rows, rows + start] = -1
-    cols = torch.arange(n - 1, -1, -1, device=sigs.device)  # N - 1 - column
-    key = (counts + 1) * n + cols[None, :]
-    top = torch.topk(key, k, dim=1).values
-    return top // n - 1, n - 1 - top % n
+    with span("topk.block"):
+        counts = block_counts(sigs, start, stop).to(torch.int64)  # [b, N]
+        rows = torch.arange(stop - start, device=sigs.device)
+        counts[rows, rows + start] = -1
+        cols = torch.arange(n - 1, -1, -1, device=sigs.device)  # N-1-col
+        key = (counts + 1) * n + cols[None, :]
+        top = torch.topk(key, k, dim=1).values
+        return top // n - 1, n - 1 - top % n
 
 
 def minhash_topk(
@@ -104,14 +106,15 @@ def knn_graph(
     duplicates are merged by max.
     """
     n, k = vals.shape
-    rows = np.repeat(np.arange(n, dtype=np.int64), k)
-    cols = idx.ravel().astype(np.int64)
-    w = vals.ravel()
-    keep = (w > 0) & (w >= threshold) & (rows != cols)
-    rows, cols, w = rows[keep], cols[keep], w[keep]
-    adj = sparse.coo_matrix((w, (rows, cols)), shape=(n, n)).tocsr()
-    sym = adj.maximum(adj.T)
-    return sym.tocsr()
+    with span("knn_graph"):
+        rows = np.repeat(np.arange(n, dtype=np.int64), k)
+        cols = idx.ravel().astype(np.int64)
+        w = vals.ravel()
+        keep = (w > 0) & (w >= threshold) & (rows != cols)
+        rows, cols, w = rows[keep], cols[keep], w[keep]
+        adj = sparse.coo_matrix((w, (rows, cols)), shape=(n, n)).tocsr()
+        sym = adj.maximum(adj.T)
+        return sym.tocsr()
 
 
 def cluster_large(
@@ -141,33 +144,46 @@ def cluster_large(
     every rank of the mesh calls this, and every rank gets the membership.
 
     Pass a dict as ``timings`` to receive per-stage wall-clock seconds
-    (keys: ``signatures``, ``topk``, ``graph``, ``louvain``).
+    (keys: ``signatures``, ``topk``, ``graph``, ``louvain``), split at the
+    ends of the span ``mh.signatures`` (and a synchronise, made only for
+    ``timings``), the top-k (the ``topk.block`` spans and the fetch of
+    the lists), the graph (the threshold and ``knn_graph``) and the span
+    ``louvain``.
+
+    The call is the span ``cluster_large``: its gauges ``threshold`` (the
+    float64 quantile of the positive top-k weights) and
+    ``kept_weight_sum`` (the float64 sum of the kept edges' weights, each
+    undirected edge once), and its count ``kept_edges`` (those edges).
     """
     from ..cluster.louvain import louvain
 
     dev = resolve_device(device)
     seqs = list(sequences)
-    enc = encode(seqs, validate=False)
-    t0 = time.perf_counter()
-    sigs = minhash_signatures(
-        enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
-        device=dev,
-    )
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)  # for the timing split
-    t1 = time.perf_counter()
-    vals, idx = _topk_neighbours(sigs, top_k, mesh)
-    t2 = time.perf_counter()
-    pos = vals[vals > 0]
-    t = float(np.quantile(pos, thresh_p)) if pos.size else 0.0
-    adj = knn_graph(vals, idx, threshold=t)
-    # keep self-loops like the dense path (unit diagonal)
-    adj = adj + sparse.eye(adj.shape[0], format="csr")
-    t3 = time.perf_counter()
-    membership = louvain(
-        adj, resolution=resolution, seed=louvain_seed
-    ).membership + 1
-    t4 = time.perf_counter()
+    with span("cluster_large") as sp:
+        enc = encode(seqs, validate=False)
+        t0 = time.perf_counter()
+        sigs = minhash_signatures(
+            enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed,
+            chunk=chunk, device=dev,
+        )
+        if timings is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # for the timing split
+        t1 = time.perf_counter()
+        vals, idx = _topk_neighbours(sigs, top_k, mesh)
+        t2 = time.perf_counter()
+        pos = vals[vals > 0]
+        t = float(np.quantile(pos, thresh_p)) if pos.size else 0.0
+        adj = knn_graph(vals, idx, threshold=t)
+        # symmetric, no self-loop yet: every edge is stored twice
+        sp.update(threshold=t, kept_edges=adj.nnz // 2,
+                  kept_weight_sum=float(adj.data.sum()) / 2)
+        # keep self-loops like the dense path (unit diagonal)
+        adj = adj + sparse.eye(adj.shape[0], format="csr")
+        t3 = time.perf_counter()
+        membership = louvain(
+            adj, resolution=resolution, seed=louvain_seed
+        ).membership + 1
+        t4 = time.perf_counter()
     if timings is not None:
         timings.update(
             signatures=t1 - t0, topk=t2 - t1, graph=t3 - t2,

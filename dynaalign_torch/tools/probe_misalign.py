@@ -21,6 +21,8 @@ whole plane after ``n_steps`` steps: through the kernel for a CUDA tensor,
 through :func:`probe_plain` for a CPU tensor.  :func:`run` times the
 marginal ns per step on the card by differencing two step counts;
 :func:`geometry` reads the launch's blocks and how many an SM holds.
+Each launch is the span ``probe_shift`` of :mod:`..utils.profiling`, whose
+counter counts the launches.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import sys
 import torch
 
 from ..ops import _build
+from ..utils.profiling import span
 
 MP1, B, W = 584, 256, 336
 GROUP = 16  # lanes a column (PROBE_G)
@@ -40,7 +43,6 @@ ROWS_PER_LANE = W // GROUP  # 21 (PROBE_R)
 BLOCK_COLS = 32 // GROUP  # columns a block of one warp: 2 (PROBE_BCOLS)
 BLOCKS = B // BLOCK_COLS  # 128 blocks, one an SM (PROBE_BLOCKS)
 KINDS = ("base", "shfl", "mis")
-LAUNCHES = 0  # kernel launches in this process; reset to 0 to count a run
 SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM per clock
 
 
@@ -76,7 +78,6 @@ def _launcher():
 def probe_shift(seed: torch.Tensor, kind: str, n_steps: int) -> torch.Tensor:
     """The plane after ``n_steps`` steps of ``kind``: the kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    global LAUNCHES
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if not isinstance(seed, torch.Tensor) or seed.dtype != torch.int32:
@@ -91,13 +92,12 @@ def probe_shift(seed: torch.Tensor, kind: str, n_steps: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"no probe kernel for device {dev}")
     out = torch.empty_like(seed)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("probe_shift"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _launcher()(seed.data_ptr(), out.data_ptr(), KINDS.index(kind),
                          n_steps, stream)
     if rc != 0:
         raise RuntimeError(f"probe_shift launch failed: CUDA error {rc}")
-    LAUNCHES += 1
     return out
 
 

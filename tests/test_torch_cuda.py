@@ -23,6 +23,7 @@ from dynaalign_torch.encode import ALPHABET, encode  # noqa: E402
 from dynaalign_torch.io.datasets import load_sequences  # noqa: E402
 from dynaalign_torch.ops import MAX_MP1, nw_batch, nw_cuda  # noqa: E402
 from dynaalign_torch.ops.nw import nw_similarity_batch  # noqa: E402
+from dynaalign_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -92,8 +93,9 @@ def test_kernel_instances_equal_plain(cuda, inst):
         args = _batch(cuda, seed + 3 * inst, 512, lo, cap, blo, bhi,
                       pad_a=cap, letters=letters)
         args[1][:2] = cap  # the capacity itself, whatever the draw
+        profiling.reset()
         _assert_kernel_equals_plain(args, sub, 5, 1)
-        assert nw_cuda.LAST_INSTANCE == inst
+        assert nw_cuda.launches()[2] == [inst]
 
 
 def test_kernel_two_strips_equal_plain(cuda):
@@ -101,8 +103,9 @@ def test_kernel_two_strips_equal_plain(cuda):
     boundary row in shared memory, at the widest padded b."""
     args = _batch(cuda, 13, 96, 577, MAX_MP1 - 1, 1, MAX_MP1 - 1,
                   pad_a=MAX_MP1 - 1, pad_b=MAX_MP1 - 1)
+    profiling.reset()
     _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda), 12, 2)
-    assert nw_cuda.LAST_INSTANCE == len(nw_cuda.INSTANCES) - 1
+    assert nw_cuda.launches()[2] == [len(nw_cuda.INSTANCES) - 1]
 
 
 def test_kernel_rejects_widths_past_its_range(cuda):
@@ -114,9 +117,9 @@ def test_kernel_rejects_widths_past_its_range(cuda):
 
 def test_similarity_nw_equals_oracle_through_kernel(cuda):
     seqs = load_sequences("evp_peparray", 160)
-    nw_cuda.LAUNCHES = 0
+    profiling.reset()
     got = similarity_nw(seqs)
-    assert nw_cuda.LAUNCHES > 0
+    assert nw_cuda.launches()[0] > 0
     np.testing.assert_array_equal(got, oracle.nw_similarity(seqs))
     h3n2 = load_sequences("h3n2sample", 24)
     np.testing.assert_array_equal(similarity_nw(h3n2),
@@ -135,10 +138,10 @@ def test_xl_range_runs_nw_gotoh_xl(cuda):
     version; a 1,120-aa sequence runs through similarity_nw."""
     args = _batch(cuda, 3, 2, 5, 10, 5, 10, pad_a=MAX_MP1, pad_b=MAX_MP1)
     sub = blosum.get_matrix(device=cuda)
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     got = nw_batch(*args, sub)
     ref = nw_similarity_batch(*args, sub)
-    assert (nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL) == (0, 1)
+    assert nw_cuda.launches()[:2] == (0, 1)
     assert torch.equal(got.matches, ref.matches)
     assert torch.equal(got.length, ref.length)
     seqs = ["A" * MAX_MP1, "ARND"]
@@ -178,7 +181,7 @@ def test_xl_two_word_instantiation_equals_plain(cuda, shape):
     65,536 on: asked for by name, small batches run through it."""
     def two_words(*args, gap_open, gap_ext):
         return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
-                            xl_words=2)[0]
+                            xl_words=2)
 
     n, alo, ahi, blo, bhi = shape
     args = _batch(cuda, 15, n, alo, ahi, blo, bhi, letters=("AAGR", "AGGR"))
@@ -193,9 +196,9 @@ def test_nw_rescore_pairs_two_words_at_real_width(cuda):
     seqs = ["".join(rng.choice(list(ALPHABET[:20]), size=k))
             for k in (300, 40000, 257, 39000)]
     pi, pj = np.array([0, 2, 0]), np.array([1, 3, 3])
-    nw_cuda.LAUNCHES_XL = 0
+    profiling.reset()
     got = nw_rescore_pairs(seqs, pi, pj)
-    assert nw_cuda.LAUNCHES_XL == 1
+    assert nw_cuda.launches()[1] == 1
     np.testing.assert_array_equal(
         got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
 
@@ -204,9 +207,9 @@ def test_bucketed_mixed_set_launches_both_kernels(cuda):
     ha = load_sequences("h3n2sample", 18)
     seqs = (load_sequences("evp_peparray", 20) + ha[:10]
             + [ha[10 + 2 * k] + ha[11 + 2 * k] for k in range(4)])
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     got = similarity_nw_bucketed(seqs)
-    assert nw_cuda.LAUNCHES > 0 and nw_cuda.LAUNCHES_XL > 0
+    assert min(nw_cuda.launches()[:2]) > 0
     np.testing.assert_array_equal(got, similarity_nw(seqs))
     np.testing.assert_array_equal(got, oracle.nw_similarity(seqs))
 
@@ -244,12 +247,15 @@ def test_xl_queue_skewed_batch_equals_plain(cuda, words):
     (0: the launcher's pick by width, one word here; 2: two words)."""
     def xl(*args, gap_open, gap_ext):
         return nw_cuda._run("nw_gotoh_xl", *args, gap_open, gap_ext,
-                            xl_words=words)[0]
+                            xl_words=words)
 
     args = _skewed(cuda, 20)
+    profiling.reset()
     _assert_kernel_equals_plain(args, blosum.get_matrix(device=cuda),
                                 wrapper=xl)
-    assert nw_cuda.LAST_XL_ITEMS == 4 + 1 + 2 + 1 + 2 + 1 + 120
+    assert nw_cuda.launches()[:2] == (0, 1)
+    assert profiling.counters()["nw_gotoh_xl.items"] == (
+        4 + 1 + 2 + 1 + 2 + 1 + 120)
 
 
 def test_xl_queue_repeated_launches_are_identical(cuda):
@@ -272,9 +278,10 @@ def test_nw_rescore_pairs_8000_equals_oracle(cuda):
     seqs = ["".join(rng.choice(list(ALPHABET[:20]), size=8000))
             for _ in range(4)]
     pi, pj = np.array([0, 2]), np.array([1, 3])
-    nw_cuda.LAUNCHES_XL = 0
+    profiling.reset()
     got = nw_rescore_pairs(seqs, pi, pj)
-    assert nw_cuda.LAUNCHES_XL == 1 and nw_cuda.LAST_XL_ITEMS == 2 * 13
+    assert nw_cuda.launches()[1] == 1
+    assert profiling.counters()["nw_gotoh_xl.items"] == 2 * 13
     np.testing.assert_array_equal(
         got, [oracle.nw_pair(seqs[i], seqs[j]) for i, j in zip(pi, pj)])
 
@@ -296,7 +303,7 @@ args = [torch.from_numpy(x).to(dev) for e in enc for x in (e.indices,
 sub = blosum.get_matrix(device=dev)
 ref = nw_similarity_batch(*args, sub)
 for words in (0, 2):
-    got = nw_cuda._run("nw_gotoh_xl", *args, sub, 10, 4, xl_words=words)[0]
+    got = nw_cuda._run("nw_gotoh_xl", *args, sub, 10, 4, xl_words=words)
     print("words", words, "equal", torch.equal(got.matches, ref.matches)
           and torch.equal(got.length, ref.length))
 """
@@ -501,18 +508,18 @@ def test_hybrid_on_card(cuda):
     )
 
     seqs = load_sequences("h3n2sample", 60)
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     dense = similarity_hybrid(seqs, prefilter_threshold=0.5)
-    assert nw_cuda.LAUNCHES > 0 and nw_cuda.LAUNCHES_XL == 0
+    assert nw_cuda.launches()[0] > 0 and nw_cuda.launches()[1] == 0
     np.testing.assert_array_equal(
         dense, similarity_hybrid(seqs, prefilter_threshold=0.5,
                                  device="cpu"))
     sp = similarity_hybrid_sparse(seqs, top_k=59, prefilter_threshold=0.5)
     np.testing.assert_array_equal(sp.toarray(), dense)
     long = [seqs[2 * k] + seqs[2 * k + 1] + seqs[2 * k] for k in range(6)]
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     ldense = similarity_hybrid(long)
-    assert nw_cuda.LAUNCHES_XL > 0 and nw_cuda.LAUNCHES == 0
+    assert nw_cuda.launches()[1] > 0 and nw_cuda.launches()[0] == 0
     full = similarity_nw(long)
     kept = (ldense != 0) & ~np.eye(6, dtype=bool)
     assert kept.any()
@@ -537,9 +544,9 @@ def test_pipeline_on_card_equals_cpu(cuda, engine):
                          minhash=MinHashConfig(k=2, n_hash=50),
                          clusterbreak=ClusterBreakConfig(size_max=30,
                                                          size_min=2))
-    nw_cuda.LAUNCHES = 0
+    profiling.reset()
     got = Pipeline(cfg).run(seqs)
-    assert (nw_cuda.LAUNCHES > 0) == (engine == "nw")
+    assert (nw_cuda.launches()[0] > 0) == (engine == "nw")
     ref = Pipeline(cfg, device="cpu").run(seqs)
     np.testing.assert_array_equal(got.clusters.clustered_seq,
                                   ref.clusters.clustered_seq)
@@ -583,6 +590,28 @@ def test_trace_records_the_card(cuda, tmp_path):
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
 
 
+def test_spans_lie_inside_their_trace_events_on_card(cuda, tmp_path):
+    """test_torch_profiling.py's clock check with the card's activity in
+    the trace: every span of similarity_nw and similarity_mh inside its own
+    user_annotation event (ts * 1000 + baseTimeNanoseconds), within 1 ms."""
+    from test_torch_profiling import spans_within_events
+
+    from dynaalign_torch import similarity_mh
+
+    seqs = load_sequences("h3n2sample", 64)
+    similarity_nw(seqs)
+    similarity_mh(seqs)
+    with profiling.trace(str(tmp_path)):
+        similarity_nw(seqs)
+        similarity_mh(seqs)
+        torch.cuda.synchronize()
+    assert spans_within_events(str(tmp_path / "trace.json")) == len(
+        profiling.spans())
+    assert nw_cuda.launches()[0] > 0
+    assert {"nw.fetch", "nw_gotoh.check", "mh.fetch"} <= {
+        s.name for s in profiling.spans()}
+
+
 def test_sharded_functions_on_card_equal_single_device(cuda):
     """parallel/'s sharded functions on the mesh of this process alone (no process
     group) launch the card's kernels and equal the single-device calls."""
@@ -598,13 +627,13 @@ def test_sharded_functions_on_card_equal_single_device(cuda):
     mixed = load_sequences("evp_peparray", 40) + [
         "".join(seqs[i:i + 3]) for i in range(0, 30, 3)]
     enc = encode(seqs)
-    nw_cuda.LAUNCHES, nw_cuda.LAUNCHES_XL = 0, 0
+    profiling.reset()
     got = parallel.sharded_nw_allpairs(enc.indices, enc.lengths, sub,
                                        mesh=mesh)
-    assert nw_cuda.LAUNCHES > 0
+    assert nw_cuda.launches()[0] > 0
     assert got.tobytes() == similarity_nw(seqs).tobytes()
     got = parallel.sharded_nw_allpairs_bucketed(mixed, sub, mesh=mesh)
-    assert nw_cuda.LAUNCHES_XL > 0
+    assert nw_cuda.launches()[1] > 0
     assert got.tobytes() == similarity_nw_bucketed(mixed).tobytes()
     menc = encode(seqs, validate=False)
     got = parallel.sharded_minhash_similarity(menc.ascii, menc.lengths,

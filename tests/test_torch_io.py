@@ -1,7 +1,8 @@
 """The port's host layers on the CPU against the JAX package: sequence
 files (FASTA, text, CSV, dataset names), the R .rds/.rda reader on files
 written here and the dataset fallback to it, the similarity statistics,
-the pure-R MinHash twin, the plots, and the profiling helpers."""
+the pure-R MinHash twin, the plots, and the profiler's trace (the span
+recorder: ``test_torch_profiling.py``)."""
 
 import gzip
 import os
@@ -345,21 +346,6 @@ def test_consensus_plot_renders_like_jax(tmp_path):
 
 
 # -- profiling -----------------------------------------------------------------
-
-
-def test_timings():
-    t = profiling.Timings()
-    for _ in range(3):
-        with t.section("work", items=10):
-            sum(range(1000))
-    with t.section("idle"):
-        pass
-    assert len(t.sections["work"]) == 3 and t.total("work") > 0
-    assert t.rate("work") == 30 / t.total("work")
-    assert t.rate("never") == 0.0
-    lines = t.report().splitlines()
-    assert lines[0].startswith("work: ") and "over 3 call(s)" in lines[0]
-    assert "items/s" in lines[0] and "items/s" not in lines[1]
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

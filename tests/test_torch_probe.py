@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from test_torch_harness import build_host, ptr  # noqa: E402
 
 from dynaalign_torch.tools import probe_misalign as probe  # noqa: E402
+from dynaalign_torch.utils import profiling  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_KIND = {"base": "base", "shfl": "roll", "mis": "mis"}
@@ -156,9 +157,9 @@ def test_probe_geometry_of_the_source(probe_lib):
 
 def test_probe_wrapper_on_cpu_and_its_checks():
     seed = torch.from_numpy(_seed(4))
-    before = probe.LAUNCHES
+    profiling.reset()
     got = probe.probe_shift(seed, "shfl", 5)
-    assert probe.LAUNCHES == before
+    assert "probe_shift" not in profiling.counters()
     assert torch.equal(got, probe.probe_plain(seed, "shfl", 5))
     with pytest.raises(ValueError, match="kind"):
         probe.probe_shift(seed, "roll", 1)
