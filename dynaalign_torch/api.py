@@ -181,7 +181,8 @@ class MinHashEngine:
         # full-matrix count cache: clusterbreak's recursion subsets are
         # all subsets of one set, so every subset similarity is a slice of
         # the full [N, N] agreement counts, computed on the device once.
-        # Auto-on up to 16,384 rows (1 GiB of int32 on the host).
+        # Auto-on up to 16,384 rows: 256 MiB of host counts at n_hash <=
+        # 255 (fetch_counts' uint8), 512 MiB of int16, 1 GiB of int32.
         if cache_counts is None:
             cache_counts = len(sigs) <= 16384
         self._cache_counts = cache_counts
@@ -191,7 +192,7 @@ class MinHashEngine:
         if self._counts is None:
             self._counts = fetch_counts(signature_agreement_counts(
                 self._sigs, block=self._block
-            ))
+            ), self.n_hash)
         return self._counts
 
     def __call__(self, subset: Sequence[str]) -> np.ndarray:

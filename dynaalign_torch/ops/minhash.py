@@ -27,6 +27,8 @@ reference (utils/mt19937.py).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -40,6 +42,10 @@ from .murmur3 import murmur3_kmer_hashes, seeds_tensor
 HASH_BYTES = 1 << 30
 # most bytes of one row block's [block, N, H] boolean compare
 COMPARE_BYTES = 1 << 30
+# least float64 output bytes of one pooled row block in
+# counts_to_similarity: a matrix under two blocks (about 724 x 724) divides
+# on the calling thread, where starting threads would cost what they save
+SIMILARITY_BLOCK_BYTES = 1 << 21
 
 _INT32_MIN = -(1 << 31)
 _INT32_MAX = (1 << 31) - 1
@@ -147,17 +153,59 @@ def signature_agreement_counts(
     return out
 
 
-def fetch_counts(counts: torch.Tensor) -> np.ndarray:
-    """The [N, N] counts as a host array, in one copy."""
+def count_dtype(n_hash: int) -> torch.dtype:
+    """The narrowest integer dtype that holds every count 0..n_hash."""
+    if n_hash <= 255:
+        return torch.uint8
+    if n_hash <= 32767:
+        return torch.int16
+    return torch.int32
+
+
+def fetch_counts(counts: torch.Tensor, n_hash: int) -> np.ndarray:
+    """The [N, N] counts as a host array, in one copy, cast first on the
+    device to the narrowest integer dtype that holds ``n_hash``."""
     with span("mh.fetch") as sp:
-        out = counts.cpu().numpy()
+        out = counts.to(count_dtype(n_hash)).cpu().numpy()
         sp["bytes"] = out.nbytes
     return out
 
 
+def _row_bounds(n: int, m: int) -> list[tuple[int, int]]:
+    """Row ranges of the divide: as many as the process's intra-op threads,
+    each at least ``SIMILARITY_BLOCK_BYTES`` of output; one below that."""
+    blocks = min(torch.get_num_threads(),
+                 n * m * 8 // SIMILARITY_BLOCK_BYTES, n)
+    if blocks <= 1:
+        return [(0, n)]
+    cuts = [n * i // blocks for i in range(blocks + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 def counts_to_similarity(counts: np.ndarray, n_hash: int) -> np.ndarray:
-    with span("mh.similarity"):
-        sims = counts.astype(np.float64) / float(n_hash)
+    """A fresh float64 [n, m] array of count / n_hash, diagonal 1.0.
+
+    One IEEE float64 divide an entry straight into the result (the C++
+    double division, src/minHash.cpp:174), in row blocks on a thread pool
+    above ``SIMILARITY_BLOCK_BYTES``; numpy's divide releases the GIL.
+    """
+    n, m = counts.shape
+    with span("mh.similarity") as sp:
+        sims = np.empty((n, m), np.float64)
+        d = float(n_hash)
+
+        def divide(bounds):
+            a, b = bounds
+            np.divide(counts[a:b], d, out=sims[a:b], dtype=np.float64)
+
+        bounds = _row_bounds(n, m)
+        if len(bounds) == 1:
+            divide(bounds[0])
+            sp["workers"] = 0
+        else:
+            with ThreadPoolExecutor(len(bounds)) as pool:
+                list(pool.map(divide, bounds))
+            sp["workers"] = len(bounds)
         np.fill_diagonal(sims, 1.0)
     return sims
 
@@ -173,5 +221,6 @@ def signature_similarity(
     exactly 1.0 (reference sets it explicitly, src/minHash.cpp:161).
     """
     sigs = as_signatures(sigs, device)
+    n_hash = sigs.shape[1]
     counts = signature_agreement_counts(sigs, block=block)
-    return counts_to_similarity(fetch_counts(counts), sigs.shape[1])
+    return counts_to_similarity(fetch_counts(counts, n_hash), n_hash)

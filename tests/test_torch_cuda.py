@@ -456,6 +456,33 @@ def test_similarity_mh_on_card(cuda, k, n_hash):
         np.testing.assert_array_equal(eng(seqs[40:90]), got[40:90, 40:90])
 
 
+@pytest.mark.parametrize("n_hash", [50, 300])
+def test_similarity_mh_pooled_divide_on_card(cuda, n_hash):
+    """2,002 sequences, over counts_to_similarity's pool cut: the card's
+    narrowed counts and pooled divide equal the CPU path, the oracle and
+    MinHashEngine (both count caches) bit for bit."""
+    from dynaalign_torch import MinHashEngine, similarity_mh
+    from dynaalign_torch.ops import minhash
+
+    seqs = _mh_seqs(11, 2000, 8, 60) + ["", "AR"]
+    assert len(seqs) ** 2 * 8 >= 2 * minhash.SIMILARITY_BLOCK_BYTES
+    profiling.reset()
+    got = similarity_mh(seqs, 2, n_hash, seed=9)
+    c = profiling.counters()
+    assert c["mh.fetch.bytes"] == len(seqs) ** 2 * (1 if n_hash < 256 else 2)
+    assert (c["mh.similarity.workers"] > 0) == (torch.get_num_threads() > 1)
+    want = similarity_mh(seqs, 2, n_hash, seed=9, device="cpu")
+    assert got.tobytes() == want.tobytes()
+    np.testing.assert_array_equal(
+        got, oracle.minhash_similarity(seqs, 2, n_hash, 9))
+    rows = np.random.default_rng(n_hash).permutation(len(seqs))[:900]
+    for cache in (True, False):
+        eng = MinHashEngine(seqs, 2, n_hash, seed=9, cache_counts=cache)
+        assert eng(seqs).tobytes() == got.tobytes()
+        sub = eng([seqs[i] for i in rows])
+        assert sub.tobytes() == got[np.ix_(rows, rows)].tobytes()
+
+
 def test_agreement_counts_int32_on_card(cuda):
     from dynaalign_torch.ops import minhash
 

@@ -179,6 +179,44 @@ def test_agreement_counts_are_int32_and_equal_jax(n_hash, block):
     np.testing.assert_array_equal(sims, jminhash.signature_similarity(sigs))
 
 
+@pytest.mark.parametrize("n_hash, dtype", [
+    (1, np.uint8), (50, np.uint8), (255, np.uint8), (256, np.int16),
+    (32767, np.int16), (32768, np.int32), (40000, np.int32)])
+def test_fetch_counts_picks_the_width_from_n_hash(n_hash, dtype):
+    counts = torch.from_numpy(np.random.default_rng(n_hash).integers(
+        0, n_hash + 1, size=(40, 40), dtype=np.int32))
+    counts[0, 1] = n_hash
+    got = minhash.fetch_counts(counts, n_hash)
+    assert got.dtype == dtype and counts.dtype == torch.int32
+    np.testing.assert_array_equal(got, counts.numpy())
+
+
+# 256 rows run on the calling thread; 1,100 (9.7 MB of float64) in row
+# blocks on the pool wherever torch has more than one intra-op thread
+@pytest.mark.parametrize("n", [256, 1100])
+@pytest.mark.parametrize("n_hash", [1, 50, 255, 256, 300, 40000])
+def test_counts_to_similarity_is_the_float64_quotient(n_hash, n):
+    """Every count 0..n_hash through fetch_counts and counts_to_similarity
+    gives Python's float(c) / n_hash, bit for bit; the diagonal is 1.0; and
+    each call returns an array of its own."""
+    assert (n * n * 8 < 2 * minhash.SIMILARITY_BLOCK_BYTES) == (n == 256)
+    rng = np.random.default_rng(n_hash)
+    counts = rng.integers(0, n_hash + 1, size=(n, n), dtype=np.int32)
+    off = ~np.eye(n, dtype=bool)  # every count off the diagonal
+    counts[off] = rng.permutation(np.arange(off.sum()) % (n_hash + 1))
+    fetched = minhash.fetch_counts(torch.from_numpy(counts), n_hash)
+    got = minhash.counts_to_similarity(fetched, n_hash)
+    quotient = np.array([float(c) / n_hash for c in range(n_hash + 1)])
+    want = quotient[counts]
+    np.fill_diagonal(want, 1.0)
+    assert got.dtype == np.float64 and got.shape == (n, n)
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+    again = minhash.counts_to_similarity(fetched, n_hash)
+    assert not np.shares_memory(got, again)
+    assert not np.shares_memory(got, fetched)
+    np.testing.assert_array_equal(again.view(np.int64), want.view(np.int64))
+
+
 def test_signature_tensors_are_checked():
     with pytest.raises(ValueError, match="int32"):
         minhash.signature_agreement_counts(torch.zeros((3, 4)))

@@ -193,10 +193,34 @@ def test_similarity_mh_span_tree(profiled):
         (1, "mh.encode", {}),
         (1, "mh.signatures", {}),
         (1, "mh.compare", {}),
-        (1, "mh.fetch", {"bytes": 4 * n * n}),  # int32 counts
-        (1, "mh.similarity", {}),
+        (1, "mh.fetch", {"bytes": n * n}),  # uint8 counts at n_hash 16
+        (1, "mh.similarity", {"workers": 0}),
     ]
     assert len({s.call for s in profiling.spans()}) == 1
+
+
+@pytest.fixture
+def threads(request):
+    """torch's intra-op threads set to the test's parameter, restored
+    after it."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(request.param)
+    yield request.param
+    torch.set_num_threads(was)
+
+
+@pytest.mark.parametrize("threads, rows, workers", [
+    (4, 64, 0),     # under the pool's cut: the calling thread
+    (4, 1100, 4),   # over it: a row block a thread
+    (1, 1100, 0),   # one intra-op thread: no pool
+], indirect=["threads"])
+def test_similarity_span_counts_its_pooled_blocks(profiled, threads, rows,
+                                                  workers):
+    """``mh.similarity``'s ``workers``: the row blocks the divide ran on
+    its thread pool, 0 when it ran on the calling thread."""
+    minhash.counts_to_similarity(np.zeros((rows, rows), np.uint8), 50)
+    (s,) = profiling.spans()
+    assert (s.name, s.entries) == ("mh.similarity", {"workers": workers})
 
 
 def test_cluster_large_gauges_its_threshold_and_kept_edges():
