@@ -23,10 +23,22 @@ with ``--trace 0``, ``per_layer`` with ``--trace 1``), ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checks``: each number compared
 with its limit, also printed as the last lines of standard error.
 
+A cell of more than one chip runs the same way on rank 0, card 0, while
+``portbench/ranks.py`` starts a follower on each other card, joins them
+into one process group and has them make the same calls.  Its device
+record counts the cards, ``memory_peak_bytes`` is the fullest card's and
+``memory_peak_bytes_by_rank`` each card's; the trace is rank 0's.
+
+A cell that reports an end-to-end metric read from the device trace
+(``"source": "device_trace"`` in ``BENCHMARK.json``) has its window traced
+in every run, with ``--trace 0`` too; the result then carries that metric,
+and the trace's own numbers only with ``--trace 1``.
+
 Without a CUDA card, or with fewer than the cell asks for, it prints no
 result and exits 3.  If the process holds a module of ``jax``, ``jaxlib``,
 ``flax`` or ``dynaalign_tpu`` once the window has closed, it names them,
-prints no result and exits 4.
+prints no result and exits 4; so does a follower's module of them.  A
+follower that fails ends the run without a result (``ranks.FAILED``).
 """
 
 from __future__ import annotations
@@ -46,9 +58,10 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 
+from portbench import ranks  # noqa: E402
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-FORBIDDEN = ("jax", "jaxlib", "flax", "dynaalign_tpu")
 
 
 def process_age() -> float:
@@ -129,82 +142,105 @@ def prepare(config: dict, traffic: dict, seed: int, device):
 
 
 def measure(cell: dict, config: dict, traffic: dict, seed: int,
-            seconds: float, trace: bool, device) -> tuple[dict, Run, dict]:
+            seconds: float, trace: bool, device,
+            profile: bool = False) -> tuple[dict, Run, dict]:
     """(the result object but ``metrics``, the Run, the checks) of one
-    run of ``cell`` on ``device``."""
+    run of ``cell`` on ``device``.  A cell of more than one chip runs on
+    the ranks of ``ranks.World``, this process rank 0: the window, the
+    trace and the judging are this rank's.  ``profile`` traces the window
+    of a run without ``trace`` too, for an end-to-end metric read from
+    the device trace; only ``trace`` adds the trace's own numbers
+    (``busy_s``, ``window_s``, ``breakdown``) to the result."""
     import torch
 
     from portbench import generate
     from portbench import trace as tracing
 
-    import dynaalign_torch  # noqa: F401  (its import is set-up)
+    # the followers start first, so that their set-up overlaps this one's
+    with ranks.World(cell["chips"], cell["name"], traffic, seed,
+                     device) as world:
+        import dynaalign_torch  # noqa: F401  (its import is set-up)
 
-    on_card = torch.device(device).type == "cuda"
+        on_card = torch.device(device).type == "cuda"
 
-    def sync():
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(device)
+
+        marks = [("imports", process_age())]
         if on_card:
-            torch.cuda.synchronize(device)
-
-    marks = [("imports", process_age())]
-    if on_card:
-        torch.empty(1, device=device)  # the CUDA context
-    marks.append(("card", process_age()))
-    mod, entry = prepare(config, traffic, seed, device)
-    seqs = entry.seqs
-    marks.append(("inputs", process_age()))
-    entry.call(generate.warm_rows(traffic, seqs))
-    sync()
-    marks.append(("warm call", process_age()))
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
-
-    prof = None
-    if trace:
-        acts = [torch.profiler.ProfilerActivity.CPU]
+            torch.empty(1, device=device)  # the CUDA context
+        marks.append(("card", process_age()))
+        if world.chips > 1:
+            world.join()
+            marks.append(("join", process_age()))
+        mod, entry = prepare(config, traffic, seed, device)
+        seqs = entry.seqs
+        marks.append(("inputs", process_age()))
+        world.announce(ranks.WARM)
+        entry.call(generate.warm_rows(traffic, seqs))
+        sync()
+        marks.append(("warm call", process_age()))
         if on_card:
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-    setup_s = process_age()
-    readings, calls, failed = [], [], 0
-    try:
-        with span(tracing.WINDOW, trace):
-            w0 = time.perf_counter()
-            while True:
-                t0 = time.perf_counter()
-                out = None
-                try:
-                    with span(tracing.CALL, trace):
-                        out = entry.call(seqs)
-                        sync()
-                except Exception:  # a failed call is counted, not fatal
-                    traceback.print_exc()
-                t1 = time.perf_counter()
-                got = None if out is None else entry.read(out, len(calls))
-                del out
-                if got is None:
-                    failed += 1
-                else:
-                    readings.append(got)
-                calls.append((t0, t1))
-                if t1 - w0 >= seconds:
-                    break
-    finally:
-        t_read = time.perf_counter()
-        if prof is not None:
-            prof.__exit__(None, None, None)
-    run = Run(mod.UNIT, entry.work(), entry.bounds(), calls,
-              calls[-1][1] - w0, setup_s)
-    dev = {"platform": "gpu" if on_card else "cpu", "count": 1}
-    if on_card:
-        dev["kind"] = torch.cuda.get_device_name(device)
-        dev["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(
-            device))
-        dev["power_limit"] = power_limit()
+            torch.cuda.reset_peak_memory_stats(device)
+
+        prof = None
+        profile = profile or trace
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if on_card:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+        setup_s = process_age()
+        readings, calls, failed = [], [], 0
+        try:
+            with span(tracing.WINDOW, profile):
+                w0 = time.perf_counter()
+                while True:
+                    world.announce(ranks.ALL)
+                    t0 = time.perf_counter()
+                    out = None
+                    try:
+                        with span(tracing.CALL, profile):
+                            out = entry.call(seqs)
+                            sync()
+                    except Exception:  # a failed call is counted, not fatal
+                        traceback.print_exc()
+                    t1 = time.perf_counter()
+                    got = None if out is None else entry.read(out, len(calls))
+                    del out
+                    if got is None:
+                        failed += 1
+                    else:
+                        readings.append(got)
+                    calls.append((t0, t1))
+                    if t1 - w0 >= seconds:
+                        break
+        finally:
+            t_read = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        run = Run(mod.UNIT, entry.work(), entry.bounds(), calls,
+                  calls[-1][1] - w0, setup_s)
+        dev = {"platform": "gpu" if on_card else "cpu",
+               "count": world.chips}
+        if on_card:
+            dev["kind"] = torch.cuda.get_device_name(device)
+            dev["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(
+                device))
+            dev["power_limit"] = power_limit()
+        reports = world.stop()
+        if reports and on_card:
+            by_rank = [dev["memory_peak_bytes"]] + [
+                r["memory_peak_bytes"] for r in reports]
+            dev["memory_peak_bytes"] = max(by_rank)
+            dev["memory_peak_bytes_by_rank"] = by_rank
     if prof is not None:
         run.trace = tracing.from_profiler(prof)
-        dev["busy_s"] = run.trace.busy_s
-        dev["window_s"] = run.trace.window_s
+        if trace:
+            dev["busy_s"] = run.trace.busy_s
+            dev["window_s"] = run.trace.window_s
         del prof
     if on_card:
         torch.cuda.empty_cache()
@@ -222,9 +258,13 @@ def measure(cell: dict, config: dict, traffic: dict, seed: int,
     result = {"correct": bool(readings) and all(
                   v <= lim for v, lim in checks.values()),
               "attempted": len(calls), "failed": failed, "device": dev}
-    if run.trace is not None:
+    if trace and run.trace is not None:
         result["breakdown"] = run.trace.breakdown()
-    return result, run, {"checks": checks, "compared": compared}
+    judged = {"checks": checks, "compared": compared}
+    if reports:
+        judged["followers_hold"] = sorted(
+            {m for r in reports for m in r["forbidden"]})
+    return result, run, judged
 
 
 def power_limit() -> str:
@@ -238,11 +278,16 @@ def power_limit() -> str:
         return "not read"
 
 
+def reported(bench: dict, workload: str, trace: bool) -> list[dict]:
+    """The metrics that a run of ``workload`` reports: its end-to-end
+    metrics, or with ``trace`` its per-layer ones."""
+    return [m for m in bench["per_layer" if trace else "end_to_end"]
+            if "workloads" not in m or workload in m["workloads"]]
+
+
 def metrics(bench: dict, workload: str, run: Run, trace: bool) -> dict:
     out = {}
-    for m in bench["per_layer" if trace else "end_to_end"]:
-        if "workloads" in m and workload not in m["workloads"]:
-            continue
+    for m in reported(bench, workload, trace):
         value = reader(m["name"])(run)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -275,11 +320,16 @@ def main(argv=None) -> int:
               f"this machine has {torch.cuda.device_count()}: no run",
               file=sys.stderr)
         return 3
+    # an end-to-end metric read from the device trace has every run of
+    # its cells traced
+    profile = any(m["source"] == "device_trace"
+                  for m in reported(bench, args.workload, False))
     result, run, judged = measure(cell, config, traffic, args.seed,
                                   args.seconds, bool(args.trace),
-                                  torch.device("cuda", 0))
+                                  torch.device("cuda", 0), profile=profile)
     result["metrics"] = metrics(bench, args.workload, run, bool(args.trace))
-    found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    found = sorted(set(ranks.forbidden_modules())
+                   | set(judged.get("followers_hold", ())))
     if found:
         print(f"portbench: the process holds {found}: no result",
               file=sys.stderr)

@@ -34,11 +34,28 @@ def test_keys_names_and_units():
     assert os.path.getsize(os.path.join(run.ROOT, "BENCHMARK.json")) < 65536
 
 
+def four_chip_cells_allowed(workloads) -> bool:
+    """The benchmark's rule: every cell takes 1 chip or 4, and at most a
+    quarter of the cells, rounded down, take 4; one always may."""
+    four = sum(w["chips"] == 4 for w in workloads)
+    return (all(w["chips"] in (1, 4) for w in workloads)
+            and four <= max(1, len(workloads) // 4))
+
+
+@pytest.mark.parametrize("chips,allowed", [
+    ([1, 1, 4], True), ([4], True), ([1, 4, 4], False),
+    ([1, 1, 1, 1, 1, 1, 1, 4, 4], True), ([1, 1, 1, 1, 1, 1, 4, 4], True),
+    ([1, 1, 1, 1, 1, 4, 4], False), ([1, 2], False), ([1, 8], False),
+])
+def test_four_chip_rule(chips, allowed):
+    assert four_chip_cells_allowed([{"chips": c} for c in chips]) == allowed
+
+
 def test_cells_configs_and_files():
     configs = {c["name"]: c for c in BENCH["configs"]}
     pairs = set()
+    assert four_chip_cells_allowed(BENCH["workloads"])
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1
         assert w["config"] in configs
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))

@@ -79,8 +79,11 @@ def test_end_to_end_readers():
     assert _read("setup_s", r) == 7.5
     assert _read("nw_pairs_per_s", r) == pytest.approx(1500.0)
     assert _read("mh_pairs_per_s", r) == pytest.approx(1500.0)
+    # the four-chip cell's whole-call rate, a per-layer metric there
+    assert _read("pairs_per_s.nw4", r) == pytest.approx(1500.0)
     # a call whose work is counted in another unit is no pair
     assert _read("nw_pairs_per_s", _run(unit="seqs")) is None
+    assert _read("pairs_per_s.nw4", _run(calls=[])) is None
 
 
 def test_per_layer_readers():
@@ -113,3 +116,89 @@ def test_minhash_counts_charge_one_instruction_and_each_pair_once():
     pairs = n * (n - 1) // 2
     assert counts.compare_bound_s(pairs, h, 0) == pytest.approx(
         2 * pairs * h / counts.ALU_OPS_PER_S)
+
+
+# rank 0 of a four-chip window of 100 us: the NW kernel at [10, 40) and
+# [50, 60); the all-reduce at [40, 70), on NCCL's stream beside the second
+# NW kernel; another NCCL kernel (a templated name) at [90, 110), half
+# past the window; a copy at [75, 80)
+NW_KERNEL = "void nw_gotoh_kernel<32, 18>(int const*, int const*)"
+NCCL_EVENTS = [
+    _x(trace.WINDOW, "user_annotation", 0, 100),
+    _x(trace.CALL, "user_annotation", 5, 90),
+    _x(NW_KERNEL, "kernel", 10, 30),
+    _x(NW_KERNEL, "kernel", 50, 10),
+    _x("ncclDevKernel_AllReduce_Sum_i32_RING_LL(ncclDevKernelArgsStorage"
+       "<4096ul>)", "kernel", 40, 30),
+    _x("void ncclKernel<0, 1>(ncclWorkElem)", "kernel", 90, 20),
+    _x("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy", 75, 5),
+]
+
+
+def _rank0(**kw):
+    return _run(**{"bounds": {"nw_dp_per_chip": 2e-6},
+                   "trace": trace.from_events(NCCL_EVENTS), **kw})
+
+
+def test_kernel_time_by_name():
+    t = trace.from_events(NCCL_EVENTS)
+    assert t.kernel_s == pytest.approx(70e-6)
+    # [40, 70) and [90, 100)
+    assert t.kernel_s_named("nccl") == pytest.approx(40e-6)
+    # [10, 40) and [50, 60): the overlap with NCCL counts for both
+    assert t.kernel_s_named("nccl", matching=False) == pytest.approx(40e-6)
+    assert t.kernel_s_named("Memcpy") == 0.0
+    assert len(t.kernel_names) == len(t.kernel_iv) == 4
+
+
+def test_four_chip_readers():
+    r = _rank0()
+    # 3 calls of 1,000 pairs over the busy [10, 70) [75, 80) [90, 100)
+    assert _read("nw4_busy_pairs_per_s", r) == pytest.approx(3000 / 75e-6)
+    assert _read("collective_share.nw4", r) == pytest.approx(40.0)
+    # 3 calls of 2 us of one rank's bound over 40 us of NW kernels
+    assert _read("nw_dp_roofline.nw4", r) == pytest.approx(100 * 6 / 40)
+    # the whole call's bound is never applied to one rank's kernels
+    assert _read("nw_dp_roofline", r) is None
+
+
+def test_four_chip_readers_find_nothing_to_read():
+    # a one-chip window: no NCCL kernel and no per-chip bound
+    one = _run()
+    assert _read("collective_share.nw4", one) is None
+    assert _read("nw_dp_roofline.nw4", one) is None
+    # an untraced run
+    for name in ("collective_share.nw4", "nw_dp_roofline.nw4",
+                 "nw4_busy_pairs_per_s"):
+        assert _read(name, _rank0(trace=None)) is None
+    # no call, or work in another unit
+    assert _read("nw4_busy_pairs_per_s", _rank0(calls=[])) is None
+    assert _read("nw4_busy_pairs_per_s", _rank0(unit="seqs")) is None
+    # a window of NCCL kernels alone has no NW kernel time to read
+    only = [e for e in NCCL_EVENTS if "nw_gotoh" not in e["name"]]
+    r = _rank0(trace=trace.from_events(only))
+    assert _read("nw_dp_roofline.nw4", r) is None
+    assert _read("collective_share.nw4", r) == pytest.approx(40.0)
+
+
+def test_busy_rate_needs_a_device_operation():
+    only_host = [e for e in EVENTS if e.get("cat") in ("user_annotation",
+                                                  "cpu_op")]
+    r = _rank0(trace=trace.from_events(only_host))
+    assert _read("nw4_busy_pairs_per_s", r) is None
+
+
+def test_device_trace_end_to_end_metrics_trace_their_cells_runs():
+    """A cell whose end-to-end metrics include one read from the device
+    trace is traced in every run; the others' runs without --trace 1 are
+    not."""
+    bench = run.load_json(run.ROOT, "BENCHMARK.json")
+    for w in bench["workloads"]:
+        e2e = run.reported(bench, w["name"], False)
+        assert {"setup_s"} < {m["name"] for m in e2e}
+        traced = any(m["source"] == "device_trace" for m in e2e)
+        assert traced == (w["name"] == "nw_blosum62.h3n2_all_4chip")
+    names = {m["name"] for m in run.reported(
+        bench, "nw_blosum62.h3n2_all_4chip", True)}
+    assert names == {"collective_share.nw4", "nw_dp_roofline.nw4",
+                     "pairs_per_s.nw4"}

@@ -68,6 +68,10 @@ def _intersect(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.array(out).reshape(-1, 2)
 
 
+def _named(name: str, prefix: str) -> bool:
+    return name.removeprefix("void ").startswith(prefix)
+
+
 def _top_level(iv: np.ndarray, names: list[str]):
     """The intervals that no earlier one contains (ops called by no other
     op), sorted, with their names."""
@@ -87,6 +91,10 @@ class Trace:
     kernels: np.ndarray  # disjoint kernel intervals
     device_ops: dict[str, float]  # seconds by device op name
     idle_by_host: dict[str, float]  # idle seconds by host activity
+    # each kernel's interval within the window, unmerged, and its name
+    kernel_iv: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, 2)))
+    kernel_names: tuple[str, ...] = ()
 
     @property
     def window_s(self) -> float:
@@ -99,6 +107,14 @@ class Trace:
     @property
     def kernel_s(self) -> float:
         return _length(self.kernels)
+
+    def kernel_s_named(self, prefix: str, matching: bool = True) -> float:
+        """Seconds of the window covered by the kernels whose names start
+        with ``prefix`` (after a leading return type ``void``), or, with
+        ``matching`` False, by every other kernel."""
+        keep = np.array([_named(n, prefix) == matching
+                         for n in self.kernel_names], dtype=bool)
+        return _length(_union(self.kernel_iv[keep]))
 
     def breakdown(self) -> dict:
         top = sorted(self.device_ops.items(), key=lambda kv: -kv[1])[:10]
@@ -127,7 +143,12 @@ def from_events(events: list[dict]) -> Trace:
     dev, dev_iv = spans(lambda e: e.get("cat") in DEVICE_CATS)
     busy = _union(_clip(dev_iv, lo, hi))
     is_kernel = np.array([e["cat"] == "kernel" for e in dev], dtype=bool)
-    kern = _union(_clip(dev_iv[is_kernel], lo, hi))
+    kern_iv = np.clip(dev_iv[is_kernel], lo, hi)
+    keep = kern_iv[:, 1] > kern_iv[:, 0]
+    kern_names = tuple(e["name"] for e, k in zip(
+        (e for e in dev if e["cat"] == "kernel"), keep) if k)
+    kern_iv = kern_iv[keep]
+    kern = _union(kern_iv)
     ops: dict[str, float] = {}
     for e, (s, t) in zip(dev, np.clip(dev_iv, lo, hi)):
         if t > s:
@@ -147,7 +168,7 @@ def from_events(events: list[dict]) -> Trace:
         for _, k, ov in _overlaps(in_calls, tops):
             idle[names[k]] = idle.get(names[k], 0.0) + ov
             idle[NO_OP] -= ov
-    return Trace((lo, hi), busy, kern, ops, idle)
+    return Trace((lo, hi), busy, kern, ops, idle, kern_iv, kern_names)
 
 
 def from_profiler(prof) -> Trace:
