@@ -47,6 +47,7 @@ from ..consensus import cluster_consensus
 from ..encode import encode
 from ..ops.minhash import minhash_signatures
 from ..ops.topk_graph import _topk_neighbours
+from ..utils.profiling import span
 
 
 def nw_rescore_pairs(
@@ -63,6 +64,9 @@ def nw_rescore_pairs(
     """Exact NW percent identity of each pair (sequences[pair_i[k]],
     sequences[pair_j[k]]), the first as the reference's sequence 1:
     float64 [len(pair_i)].  Runs on ``device`` as ``similarity_nw`` does.
+
+    The work is the span ``hybrid.rescore`` (count ``pairs``), around the
+    launches' own ``nw.launch``, ``nw.fetch`` and ``nw.ratio``.
     """
     pi = np.asarray(pair_i, dtype=np.int64).reshape(-1)
     pj = np.asarray(pair_j, dtype=np.int64).reshape(-1)
@@ -71,19 +75,20 @@ def nw_rescore_pairs(
             f"pair_i and pair_j differ in length: {pi.size} and {pj.size}"
         )
     dev = _resolve_device(device)
-    sub = blosum.get_matrix(matrix_name, device=dev)
-    enc = encode(sequences)
-    n = len(enc.lengths)
-    if pi.size == 0:
-        return np.zeros(0, dtype=np.float64)
-    if min(pi.min(), pj.min()) < 0 or max(pi.max(), pj.max()) >= n:
-        raise IndexError(f"pair indices must lie in [0, {n})")
-    idx = torch.from_numpy(enc.indices).to(dev)
-    lens = torch.from_numpy(enc.lengths).to(dev)
-    mt, ln = _pairs_nw(idx, lens, idx, lens, torch.from_numpy(pi).to(dev),
-                       torch.from_numpy(pj).to(dev), sub, gap_open, gap_ext,
-                       chunk or DEFAULT_CHUNK)
-    return _ratio(mt, ln)
+    with span("hybrid.rescore", pairs=int(pi.size)):
+        sub = blosum.get_matrix(matrix_name, device=dev)
+        enc = encode(sequences)
+        n = len(enc.lengths)
+        if pi.size == 0:
+            return np.zeros(0, dtype=np.float64)
+        if min(pi.min(), pj.min()) < 0 or max(pi.max(), pj.max()) >= n:
+            raise IndexError(f"pair indices must lie in [0, {n})")
+        idx = torch.from_numpy(enc.indices).to(dev)
+        lens = torch.from_numpy(enc.lengths).to(dev)
+        mt, ln = _pairs_nw(idx, lens, idx, lens, torch.from_numpy(pi).to(dev),
+                           torch.from_numpy(pj).to(dev), sub, gap_open,
+                           gap_ext, chunk or DEFAULT_CHUNK)
+        return _ratio(mt, ln)
 
 
 def _select_pairs(mh: np.ndarray, quantile: float, threshold: float | None):
@@ -177,39 +182,54 @@ def hybrid_topk_edges(
     and every rank of the mesh calls this and gets the whole edge list.
 
     Returns (pair_i, pair_j, mh_weight) with pair_i < pair_j, sorted by
-    pair_i * N + pair_j.
+    pair_i * N + pair_j.  The top-k is the span ``hybrid.topk`` (it ends
+    in the lists' fetch), the host's dedup, quantile and selection the
+    span ``hybrid.edges``.
     """
     seqs = list(sequences)
+    return _hybrid_edges(
+        seqs, _resolve_device(device), k=k, n_hash=n_hash, seed=seed,
+        top_k=top_k, prefilter_quantile=prefilter_quantile,
+        prefilter_threshold=prefilter_threshold, chunk=chunk, mesh=mesh,
+    )[:3]
+
+
+def _hybrid_edges(seqs: list[str], dev, *, k, n_hash, seed, top_k,
+                  prefilter_quantile, prefilter_threshold, chunk, mesh):
+    """:func:`hybrid_topk_edges`'s three arrays and, fourth, the float64
+    threshold its edges were kept at."""
     n = len(seqs)
-    dev = _resolve_device(device)
     enc = encode(seqs)
     sigs = minhash_signatures(
         enc.ascii, enc.lengths, k=k, n_hash=n_hash, seed=seed, chunk=chunk,
         device=dev,
     )
-    vals, idx = _topk_neighbours(sigs, top_k, mesh)
-    kk = vals.shape[1]
-    rows = np.repeat(np.arange(n, dtype=np.int64), kk)
-    cols = idx.ravel().astype(np.int64)
-    w = vals.ravel()
-    keep = (w > 0) & (rows != cols)
-    rows, cols, w = rows[keep], cols[keep], w[keep]
-    lo = np.minimum(rows, cols)
-    hi = np.maximum(rows, cols)
-    key = lo * n + hi
-    # both directions of an edge carry the same count; keep the first
-    _, first = np.unique(key, return_index=True)
-    lo, hi, w = lo[first], hi[first], w[first]
-    if prefilter_threshold is not None:
-        t = prefilter_threshold
-    else:
-        t = float(np.quantile(w, prefilter_quantile)) if w.size else 0.0
-    sel = w >= t
-    return (
-        lo[sel].astype(np.int32),
-        hi[sel].astype(np.int32),
-        w[sel],
-    )
+    with span("hybrid.topk"):
+        vals, idx = _topk_neighbours(sigs, top_k, mesh)
+    with span("hybrid.edges"):
+        kk = vals.shape[1]
+        rows = np.repeat(np.arange(n, dtype=np.int64), kk)
+        cols = idx.ravel().astype(np.int64)
+        w = vals.ravel()
+        keep = (w > 0) & (rows != cols)
+        rows, cols, w = rows[keep], cols[keep], w[keep]
+        lo = np.minimum(rows, cols)
+        hi = np.maximum(rows, cols)
+        key = lo * n + hi
+        # both directions of an edge carry the same count; keep the first
+        _, first = np.unique(key, return_index=True)
+        lo, hi, w = lo[first], hi[first], w[first]
+        if prefilter_threshold is not None:
+            t = float(prefilter_threshold)
+        else:
+            t = float(np.quantile(w, prefilter_quantile)) if w.size else 0.0
+        sel = w >= t
+        return (
+            lo[sel].astype(np.int32),
+            hi[sel].astype(np.int32),
+            w[sel],
+            t,
+        )
 
 
 def similarity_hybrid_sparse(
@@ -248,15 +268,23 @@ def similarity_hybrid_sparse(
     = signatures + top-k + threshold, ``rescore``; plus ``n_edges``).
     """
     seqs = list(sequences)
-    n = len(seqs)
-    dev = _resolve_device(device)
-    t0 = time.perf_counter()
-    pi, pj, _ = hybrid_topk_edges(
-        seqs, k=k, n_hash=n_hash, seed=seed, top_k=top_k,
-        prefilter_quantile=prefilter_quantile,
-        prefilter_threshold=prefilter_threshold, chunk=chunk, mesh=mesh,
-        device=dev,
+    pi, pj, sims, _ = _rescored_edges(
+        seqs, _resolve_device(device), timings, k=k, n_hash=n_hash,
+        seed=seed, top_k=top_k, prefilter_quantile=prefilter_quantile,
+        prefilter_threshold=prefilter_threshold, matrix_name=matrix_name,
+        gap_open=gap_open, gap_ext=gap_ext, chunk=chunk, mesh=mesh,
     )
+    return _symmetric_csr(len(seqs), pi, pj, sims)
+
+
+def _rescored_edges(seqs: list[str], dev, timings: dict | None, *,
+                    matrix_name, gap_open, gap_ext, **topk):
+    """(pair_i, pair_j, exact NW weight, MH threshold) of the sparse
+    hybrid path: :func:`_hybrid_edges` with ``topk``'s settings, then
+    :func:`nw_rescore_pairs` of the kept edges; fills ``timings`` as
+    :func:`similarity_hybrid_sparse` documents."""
+    t0 = time.perf_counter()
+    pi, pj, _, t = _hybrid_edges(seqs, dev, **topk)
     t1 = time.perf_counter()
     if len(pi):
         sims = nw_rescore_pairs(
@@ -270,6 +298,12 @@ def similarity_hybrid_sparse(
         timings.update(
             edges=t1 - t0, rescore=t2 - t1, n_edges=int(len(pi))
         )
+    return pi, pj, sims, t
+
+
+def _symmetric_csr(n: int, pi, pj, sims) -> sparse.csr_matrix:
+    """CSR [n, n] with ``sims`` on the pairs in both orientations and a
+    unit diagonal."""
     return sparse.coo_matrix(
         (
             np.concatenate([sims, sims, np.ones(n)]),
@@ -300,6 +334,7 @@ def cluster_large_exact(
     mesh=None,
     device=None,
     timings: dict | None = None,
+    graph: dict | None = None,
 ) -> np.ndarray:
     """Large-N clustering on exact NW edge weights: MH top-k prefilter →
     NW rescoring of the surviving edges → Louvain.
@@ -312,21 +347,40 @@ def cluster_large_exact(
 
     Pass a dict as ``timings`` for per-stage seconds (``edges``,
     ``rescore``, ``louvain``; plus ``n_edges``).
+
+    Pass a dict as ``graph`` to have it filled (the return value stays
+    the membership) with the graph Louvain clustered: ``pair_i`` and
+    ``pair_j`` (int32, pair_i < pair_j, sorted by pair_i * N + pair_j),
+    ``weight`` (float64 exact NW percent identity of each kept edge),
+    ``threshold`` (the float64 MH prefilter threshold) and ``modularity``
+    (Louvain's float64 Q of the membership on that graph, its unit
+    diagonal as self-loops, at ``resolution``).
+
+    The call is the span ``cluster_large_exact``: its gauges
+    ``threshold``, ``rescored_weight_sum`` (the float64 sum of the kept
+    edges' weights) and ``modularity``, and its count ``rescored_edges``.
     """
-    adj = similarity_hybrid_sparse(
-        sequences, k=k, n_hash=n_hash, seed=seed, top_k=top_k,
-        prefilter_quantile=thresh_p,
-        prefilter_threshold=prefilter_threshold,
-        matrix_name=matrix_name, gap_open=gap_open, gap_ext=gap_ext,
-        chunk=chunk, mesh=mesh, device=device, timings=timings,
-    )
-    t0 = time.perf_counter()
-    membership = louvain(
-        adj, resolution=resolution, seed=louvain_seed
-    ).membership + 1
-    if timings is not None:
-        timings["louvain"] = time.perf_counter() - t0
-    return membership
+    seqs = list(sequences)
+    with span("cluster_large_exact") as sp:
+        pi, pj, sims, t = _rescored_edges(
+            seqs, _resolve_device(device), timings, k=k, n_hash=n_hash,
+            seed=seed, top_k=top_k, prefilter_quantile=thresh_p,
+            prefilter_threshold=prefilter_threshold,
+            matrix_name=matrix_name, gap_open=gap_open, gap_ext=gap_ext,
+            chunk=chunk, mesh=mesh,
+        )
+        t0 = time.perf_counter()
+        result = louvain(_symmetric_csr(len(seqs), pi, pj, sims),
+                         resolution=resolution, seed=louvain_seed)
+        if timings is not None:
+            timings["louvain"] = time.perf_counter() - t0
+        q = float(result.modularity)
+        sp.update(threshold=t, rescored_edges=int(len(pi)),
+                  rescored_weight_sum=float(sims.sum()), modularity=q)
+    if graph is not None:
+        graph.update(pair_i=pi, pair_j=pj, weight=sims, threshold=t,
+                     modularity=q)
+    return result.membership + 1
 
 
 @dataclasses.dataclass
