@@ -59,11 +59,13 @@ Phases (any failure raises; the exit code is then non-zero):
  12. top-k: the tie canary (96 x 8 signatures over {0, 1, 2}, k=7) and
      minhash_topk on the 65,339 allunique 12-mers (top_k=64) against a
      stable host sort of host-computed counts on the first and last 256
-     rows, timed;
+     rows, every row through one minhash_topk launch a call, timed;
  13. hybrid: similarity_hybrid on h3n2sample[:1000] (kept entries equal
      to phase 5's NW matrix, the rest 0, through nw_gotoh) and on the long
      set (through nw_gotoh_xl, against phase 7's matrix);
-     similarity_hybrid_sparse at top_k = N - 1 equal to the dense result;
+     similarity_hybrid_sparse at top_k = N - 1 equal to the dense result on
+     the first 257 rows (top_k 256, the top-k kernel's limit), and past
+     the limit raising on the card;
      the viral-panel configuration at full size (herv, 5,701 12-mers)
      timed by stage, a 256-pair sample against the oracle;
  14. clustering: clusterbreak on the 641 evp_peparray 12-mers, card equal
@@ -118,7 +120,10 @@ Phases (any failure raises; the exit code is then non-zero):
      rate, stages, nw_gotoh launches and kernel ms, peak device memory and
      host RSS; held to the serial oracle (blocks, the J rows, sampled pairs,
      the whole MinHash matrix, every kept panel pair) and to the JAX
-     package's config-5 memberships (pinned sha256).
+     package's config-5 memberships (pinned sha256); config 5's top-k one
+     minhash_topk launch a call, and the kernel alone on its 100,000
+     signatures against its plain version on the card on every row, both
+     timed, beside the kernel's bound.
 
 Prints one {"kernels": [...]} line, then {"ok": true, "device": {...}} as
 the last line.  Without a card it exits non-zero and prints no result.
@@ -708,13 +713,15 @@ def phase_minhash(dev, evp_all, h3n2_all, refs):
     return {"signatures": (sig_ms, sig_bound), "agreement": (agree_ms, a_bound)}
 
 
-def phase_topk(dev, allunique, refs):
+def phase_topk(dev, allunique, refs) -> int:
     """[12] The top-k graph: tie order, and allunique at full size (its
-    lists' digest into ``refs``)."""
+    lists' digest into ``refs``).  Returns the minhash_topk launches of its
+    two timed calls."""
     from dynaalign_torch import oracle
     from dynaalign_torch.encode import encode
     from dynaalign_torch.ops import minhash
     from dynaalign_torch.ops.topk_graph import minhash_topk
+    from dynaalign_torch.utils import profiling
 
     print("[12] top-k graph")
     tsigs = np.random.default_rng(7).integers(0, 3, size=(96, 8)).astype(
@@ -737,9 +744,16 @@ def phase_topk(dev, allunique, refs):
             allunique[:2000], k, n_hash, 0)):
         raise AssertionError("allunique signatures != oracle on [:2000]")
     torch.cuda.reset_peak_memory_stats()
+    profiling.reset()
     walls, (vals, idx) = _best_of(lambda: minhash_topk(sigs, k=top_k),
                                   repeat=2)
     peak = torch.cuda.max_memory_allocated()
+    served = profiling.counters()
+    if served.get("minhash_topk") != 2 or served.get(
+            "topk.block.kernel_rows") != 2 * n:
+        raise AssertionError(f"minhash_topk on allunique: not one "
+                             f"minhash_topk launch for all rows a call: "
+                             f"{served}")
     if vals.shape != (n, top_k) or idx.dtype != np.int32 or (
             idx == np.arange(n)[:, None]).any():
         raise AssertionError("minhash_topk on allunique: bad lists")
@@ -758,8 +772,9 @@ def phase_topk(dev, allunique, refs):
           f"{bound:.3f} ms by {by} (operations {ops_ms:.3f} ms, bytes "
           f"{bytes_ms:.4f} ms) = {bound / best / 1e3:.4f} of the bound; peak "
           f"device memory {peak} bytes; rows [:256] and [-256:] equal to a "
-          "stable host sort of host-computed counts")
-    return {"top-k": (best * 1e3, bound)}
+          "stable host sort of host-computed counts; every row through the "
+          "minhash_topk kernel, one launch a call")
+    return served["minhash_topk"]
 
 
 def _check_hybrid(out, mh, nw, quantile=0.8, threshold=None):
@@ -784,7 +799,7 @@ def phase_hybrid(h3n2, sims, long, lsims, herv):
         oracle, similarity_hybrid, similarity_hybrid_sparse, similarity_mh,
     )
     from dynaalign_torch.models import pipeline
-    from dynaalign_torch.ops import nw_cuda
+    from dynaalign_torch.ops import nw_cuda, topk_cuda
     from dynaalign_torch.utils import profiling
 
     print("[13] hybrid: MinHash prefilter, exact NW rescoring")
@@ -808,12 +823,22 @@ def phase_hybrid(h3n2, sims, long, lsims, herv):
     dense_t = similarity_hybrid(h3n2, prefilter_threshold=t)
     _check_hybrid(dense_t, mh, sims, threshold=t)
     timings = {}
-    sp = similarity_hybrid_sparse(h3n2, top_k=n - 1, prefilter_threshold=t,
-                                  timings=timings)
-    if not np.array_equal(sp.toarray(), dense_t):
+    m = topk_cuda.MAX_K + 1
+    sp = similarity_hybrid_sparse(h3n2[:m], top_k=m - 1,
+                                  prefilter_threshold=t, timings=timings)
+    if not np.array_equal(sp.toarray(), dense_t[:m, :m]):
         raise AssertionError("similarity_hybrid_sparse != dense at top_k=N-1")
-    print(f"  similarity_hybrid_sparse, top_k={n - 1}, prefilter_threshold="
-          f"{t}: equal to the dense result elementwise; timings {timings}")
+    try:
+        similarity_hybrid_sparse(h3n2, top_k=n - 1, prefilter_threshold=t)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"top_k={n - 1}, past the top-k kernel's limit, "
+                             "ran on the card")
+    print(f"  similarity_hybrid_sparse on h3n2sample[:{m}], top_k={m - 1} "
+          f"(the top-k kernel's limit), prefilter_threshold={t}: equal to "
+          f"the dense result's [:{m}, :{m}] elementwise; timings {timings}; "
+          f"top_k={n - 1} raises on the card")
 
     nl = len(long)
     lmh = similarity_mh(long)
@@ -1770,7 +1795,8 @@ def phase_mandated(sims) -> dict[str, int]:
     config 2 on every h3n2sample protein (J mapped to L), MinHash on every
     h3n2ha1415 protein, config 4 on the three viral panels whole, config 5
     on CONFIG5_N peptides.  ``sims`` is phase 5's NW matrix of
-    h3n2sample[:1000].  Returns nw_gotoh's launches by run."""
+    h3n2sample[:1000].  Returns (nw_gotoh's launches by run, the
+    minhash_topk kernel's launches and times on config 5)."""
     from dynaalign_torch import (
         api, cluster_large, cluster_large_exact, oracle, similarity_hybrid,
         similarity_mh, similarity_nw,
@@ -1779,6 +1805,7 @@ def phase_mandated(sims) -> dict[str, int]:
     from dynaalign_torch.io.datasets import load_sequences
     from dynaalign_torch.models import pipeline
     from dynaalign_torch.ops import minhash, pair_bytes, topk_graph
+    from dynaalign_torch.utils import profiling
 
     print("[18] BASELINE configurations at their mandated sizes")
     t_phase = time.perf_counter()
@@ -1907,8 +1934,7 @@ def phase_mandated(sims) -> dict[str, int]:
     pep = with_mutants(base, CONFIG5_N)
     n = len(pep)
     print(f"  config 5: {n} peptides (allunique's {len(base)} and "
-          f"{n - len(base)} seeded point mutants of them), {CONFIG5}; top-k "
-          f"row block {minhash.row_block(n, 50)}")
+          f"{n - len(base)} seeded point mutants of them), {CONFIG5}")
     # cluster_large's top-k lists and signatures, kept for the row check
     seen = {}
     real = topk_graph._topk_neighbours
@@ -1918,6 +1944,7 @@ def phase_mandated(sims) -> dict[str, int]:
         seen.update(sigs=minhash.signatures_to_numpy(sigs), lists=out)
         return out
 
+    topk_launches = {}
     for fn in (cluster_large, cluster_large_exact):
         timings = {}
         topk_graph._topk_neighbours = keep_lists
@@ -1928,6 +1955,15 @@ def phase_mandated(sims) -> dict[str, int]:
                 timings)
         finally:
             topk_graph._topk_neighbours = real
+        served = profiling.counters()  # the timed call's
+        topk_launches[f"config 5 {fn.__name__}"] = served.get(
+            "minhash_topk", 0)
+        if served.get("minhash_topk") != 1 or served.get(
+                "topk.block.kernel_rows") != n or served.get(
+                "topk.block.plain_rows"):
+            raise AssertionError(f"{fn.__name__}: the top-k not one "
+                                 f"minhash_topk launch for all {n} rows: "
+                                 f"{served}")
         got = _digest(np.asarray(mem, np.int64))
         n_clusters = len(np.unique(mem))
         if got != C5_DIGESTS[fn.__name__]:
@@ -1949,9 +1985,65 @@ def phase_mandated(sims) -> dict[str, int]:
     print("  cluster_large's top-k lists of 256 rows drawn with "
           "default_rng(18) equal a stable host sort of host-counted "
           "agreements of the card's signatures (ties lowest index first); "
-          "the signatures of the last 2,000 rows equal the oracle's")
+          "the signatures of the last 2,000 rows equal the oracle's; each "
+          "timed call's top-k one minhash_topk launch for all rows")
+    topk5 = config5_topk(sigs, vals, idx, CONFIG5["top_k"])
+    topk5["launches"] = topk_launches
     print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, topk5
+
+
+def config5_topk(sigs, vals, idx, k: int) -> dict:
+    """The minhash_topk kernel alone on config 5's signatures ``sigs``
+    (uint32 [N, 50]), every row in one launch (best of 3 by CUDA events),
+    against its plain version on the card (``topk_graph._topk_plain`` in
+    ``minhash.row_block`` rows, every block timed) and against the lists
+    ``vals``, ``idx`` of the cluster path, on every row; the kernel's bound
+    from the inputs.  Returns ms, plain_ms, bound_ms, bound_by."""
+    from dynaalign_torch.ops import minhash, topk_cuda, topk_graph
+    from dynaalign_torch.utils import profiling
+
+    n, n_hash = sigs.shape
+    t = torch.from_numpy(np.ascontiguousarray(sigs).view(np.int32)).cuda()
+    profiling.reset()
+    k_ms, (kc, ki) = _best_ms(lambda: topk_cuda.topk_rows(t, 0, n, k),
+                              calls=3)
+    if profiling.counters().get("minhash_topk") != 3:
+        raise AssertionError(f"config 5 kernel alone: launches "
+                             f"{profiling.counters()}")
+    if not np.array_equal(ki.cpu().numpy(), idx) or not np.array_equal(
+            kc.cpu().numpy() / float(n_hash), vals):
+        raise AssertionError("config 5: the kernel alone != the cluster "
+                             "path's lists")
+    block = minhash.row_block(n, n_hash)
+    plain_ms = 0.0
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        ms, (pc, pi) = _event_ms(
+            lambda s=s, e=e: topk_graph._topk_plain(t, s, e, k))
+        plain_ms += ms
+        if not torch.equal(pc, kc[s:e]) or not torch.equal(pi, ki[s:e]):
+            raise AssertionError(f"config 5: minhash_topk != its plain "
+                                 f"version on rows {s}:{e}")
+    # the function's work: every unordered pair once, one compare and one
+    # add a slot; the signatures read once, the lists written once
+    pairs = n * (n - 1) // 2
+    ops_ms = 2.0 * pairs * n_hash / ALU_OPS_PER_S * 1e3
+    bytes_ms = (4.0 * n * n_hash + 8.0 * n * k) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"  minhash_topk alone on config 5's {n} signatures, k={k}, every "
+          f"row in one launch: {k_ms:.3f} ms (best of 3, CUDA events); its "
+          f"plain version on the card ({-(-n // block)} row blocks of "
+          f"{block}) {plain_ms:.3f} ms; equal on every row, counts and "
+          f"indices, and to the cluster path's lists; bound {bound_ms:.3f} "
+          f"ms by {bound_by} ({pairs} unordered pairs x {n_hash} slots x 2 "
+          f"ops at the ALU rate = {ops_ms:.3f} ms; bytes {bytes_ms:.4f} ms) "
+          f"= {bound_ms / k_ms:.4f} of the bound; the kernel compares both "
+          f"directions of every pair, {2 * ops_ms:.3f} ms of work at that "
+          f"rate = {2 * ops_ms / k_ms:.4f}")
+    return {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def main() -> int:
@@ -2495,14 +2587,14 @@ def main() -> int:
     refs = {"nw h3n2": _digest(sims), "nw long": _digest(lsims),
             "bucketed mixed": _digest(msims)}
     torch_stages = phase_minhash(dev, evp_all, h3n2_all, refs)
-    torch_stages.update(phase_topk(dev, allunique, refs))
+    topk_launches = phase_topk(dev, allunique, refs)
     print(f"  nvidia-smi {CLOCKS}: {_smi(CLOCKS)}")
     phase_hybrid(h3n2, sims, long, lsims, load_sequences("herv"))
     exact_mem = phase_clustering(evp_all, allunique, refs)
     phase_pipeline(h3n2_all, sims, long, lsims, exact_mem)
     sharded = phase_parallel(refs, allunique)
     phase_studies(h3n2, sims, evp_all, sims_e)
-    mandated = phase_mandated(sims)
+    mandated, topk5 = phase_mandated(sims)
     print("torch stages (no hand-written kernel), ms / bound ms / share: "
           + "; ".join(f"{k} {ms:.3f} / {b:.3f} / {b / ms:.4f}"
                       for k, (ms, b) in torch_stages.items()))
@@ -2567,6 +2659,24 @@ def main() -> int:
         "library_ms": None,
         "ns_per_step": per_kind,
         "grid": grid,
+    }, {
+        "name": "minhash_topk",
+        "route": "cuda",
+        "source": "dynaalign_torch/csrc/minhash_topk.cu",
+        "replaces": "dynaalign_tpu/ops/topk_graph.py:28",
+        "launches": topk_launches + sum(topk5["launches"].values()),
+        "launches_by_path": {"allunique top_k=64": topk_launches,
+                             **topk5["launches"]},
+        "equal_to_plain": True,
+        "max_abs_err": 0,
+        "timed_on": "config 5's 100,000 signatures, k=32, every row: the "
+                    "launch alone, best of 3; the plain version over its "
+                    "row blocks on the card",
+        "ms": topk5["ms"],
+        "plain_ms": topk5["plain_ms"],
+        "bound_ms": topk5["bound_ms"],
+        "bound_by": topk5["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

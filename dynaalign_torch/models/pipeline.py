@@ -256,7 +256,10 @@ def similarity_hybrid_sparse(
     about 80 GB of float64 at N = 100k.  This path composes the device-side
     top-k graph with ``nw_rescore_pairs``, so the exact-NW flow reaches
     sets the dense one cannot.  With ``top_k >= N-1`` and an absolute
-    ``prefilter_threshold``, the result equals the dense path exactly.
+    ``prefilter_threshold``, the result equals the dense path exactly.  On
+    a card the top-k kernel takes top_k and n_hash up to
+    ``ops.topk_cuda.MAX_K`` (256) and ``MAX_N_HASH`` (255), and raises
+    past them.
 
     ``mesh`` shards the top-k prefilter as in :func:`hybrid_topk_edges`;
     each rank rescores the kept edges on its own device.

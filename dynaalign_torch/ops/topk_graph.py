@@ -20,6 +20,7 @@ from scipy import sparse
 from ..device import resolve_device
 from ..encode import encode
 from ..utils.profiling import span
+from . import topk_cuda
 from .minhash import (
     as_signatures,
     block_counts,
@@ -29,23 +30,63 @@ from .minhash import (
 )
 
 
-def _topk_block(sigs: torch.Tensor, start: int, stop: int, k: int):
+def _check(sigs: torch.Tensor, start: int, stop: int, k: int) -> None:
+    """Raise unless ``sigs`` is an int32 [N, H] tensor, 0 <= start <= stop
+    <= N and 1 <= k <= N: what either version takes."""
+    if sigs.dtype != torch.int32 or sigs.dim() != 2:
+        raise ValueError("signature tensors are int32 [N, H] bit patterns, "
+                         f"got {sigs.dtype} {tuple(sigs.shape)}")
+    n = sigs.shape[0]
+    if not 0 <= start <= stop <= n:
+        raise ValueError(f"rows {start}:{stop} out of range for N={n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"k must lie in [1, N={n}], got {k}")
+
+
+def _topk_block(sigs: torch.Tensor, start: int, stop: int, k: int,
+                block: int | None = None):
     """(counts, neighbour indices), both int64 [stop - start, k], of rows
     start:stop; the row itself is masked to count -1.
+
+    A CUDA tensor goes to the kernel ``csrc/minhash_topk.cu``, one launch
+    for all the rows (``topk_cuda.topk_rows``, which raises past the
+    kernel's limits); a CPU tensor to the plain version, :func:`_topk_plain`,
+    in row blocks of ``block`` rows (None: what a [block, N, n_hash]
+    compare within ``minhash.COMPARE_BYTES`` holds).  Each launch and each
+    plain row block is a span ``topk.block``, which counts the rows it
+    served as ``kernel_rows`` or ``plain_rows``.
+    """
+    _check(sigs, start, stop, k)
+    if sigs.device.type == "cuda":
+        with span("topk.block", kernel_rows=stop - start, plain_rows=0):
+            return topk_cuda.topk_rows(sigs, start, stop, k)
+    block = block or row_block(*sigs.shape)
+    parts = []
+    for s in range(start, max(stop, start + 1), block):  # start == stop: one empty block
+        e = min(s + block, stop)
+        with span("topk.block", kernel_rows=0, plain_rows=e - s):
+            parts.append(_topk_plain(sigs, s, e, k))
+    return (torch.cat([c for c, _ in parts]),
+            torch.cat([i for _, i in parts]))
+
+
+def _topk_plain(sigs: torch.Tensor, start: int, stop: int, k: int):
+    """The plain version of :func:`_topk_block`, in torch ops, on any
+    device: a [stop - start, N] count block and ``torch.topk`` over it.
 
     Equal counts come lowest index first, by construction: the top-k runs
     over the key (count + 1) * N + (N - 1 - column), which is distinct
     within a row, so it does not matter how ``torch.topk`` orders ties.
+    The kernel keeps the same order.
     """
     n = sigs.shape[0]
-    with span("topk.block"):
-        counts = block_counts(sigs, start, stop).to(torch.int64)  # [b, N]
-        rows = torch.arange(stop - start, device=sigs.device)
-        counts[rows, rows + start] = -1
-        cols = torch.arange(n - 1, -1, -1, device=sigs.device)  # N-1-col
-        key = (counts + 1) * n + cols[None, :]
-        top = torch.topk(key, k, dim=1).values
-        return top // n - 1, n - 1 - top % n
+    counts = block_counts(sigs, start, stop).to(torch.int64)  # [b, N]
+    rows = torch.arange(stop - start, device=sigs.device)
+    counts[rows, rows + start] = -1
+    cols = torch.arange(n - 1, -1, -1, device=sigs.device)  # N-1-col
+    key = (counts + 1) * n + cols[None, :]
+    top = torch.topk(key, k, dim=1).values
+    return top // n - 1, n - 1 - top % n
 
 
 def minhash_topk(
@@ -61,16 +102,16 @@ def minhash_topk(
     (src/minHash.cpp:174 semantics); self-pairs excluded; k is cut to
     N - 1; among equal counts the lower index comes first.  A set of one
     sequence has no neighbour: its single entry is index 0 at similarity 0.
-    ``block=None`` sizes the row block from ``minhash.COMPARE_BYTES``.
+    On a card one kernel launch serves every row, with k and n_hash up to
+    ``topk_cuda.MAX_K`` and ``MAX_N_HASH`` (past them it raises); on the
+    CPU ``block`` is the plain version's row block (None sizes it from
+    ``minhash.COMPARE_BYTES``).
     """
     sigs = as_signatures(sigs, device)
     n, n_hash = sigs.shape
     k = min(k, max(n - 1, 1))
-    block = block or row_block(n, n_hash)
-    parts = [_topk_block(sigs, s, min(s + block, n), k)
-             for s in range(0, n, block)]
-    return _topk_lists(torch.cat([c for c, _ in parts]).cpu().numpy(),
-                      torch.cat([i for _, i in parts]).cpu().numpy(), n_hash)
+    counts, idx = _topk_block(sigs, 0, n, k, block)
+    return _topk_lists(counts.cpu().numpy(), idx.cpu().numpy(), n_hash)
 
 
 def _topk_lists(counts: np.ndarray, idx: np.ndarray, n_hash: int):

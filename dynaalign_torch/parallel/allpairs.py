@@ -429,8 +429,9 @@ def sharded_minhash_topk(
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Top-k neighbour lists on a mesh, the sharded form of
     ``ops.topk_graph.minhash_topk``: rows split over the flattened mesh,
-    signatures replicated, each rank reducing its whole rows to top-k in
-    row blocks of ``block`` (None: ``minhash.COMPARE_BYTES``'s size).  The
+    signatures replicated, each rank reducing its whole rows to top-k (on a
+    card in one kernel launch, on the CPU in row blocks of ``block``; None:
+    ``minhash.COMPARE_BYTES``'s size).  The
     distinct key holds the global column, so equal counts come lowest
     index first, as on one device.
 
@@ -445,12 +446,9 @@ def sharded_minhash_topk(
     sigs = as_signatures(sigs, mesh.device)
     n, n_hash = sigs.shape
     k = min(k, max(n - 1, 1))
-    block = block or row_block(n, n_hash)
     full = _zeros(mesh, (2, n, k), torch.int64)
-    for s in range(rows.start, rows.stop, block):
-        e = min(s + block, rows.stop)
-        counts, idx = _topk_block(sigs, s, e, k)
-        full[0, s:e] = counts.to(full.device)
-        full[1, s:e] = idx.to(full.device)
+    counts, idx = _topk_block(sigs, rows.start, rows.stop, k, block)
+    full[0, rows.start:rows.stop] = counts.to(full.device)
+    full[1, rows.start:rows.stop] = idx.to(full.device)
     out = _sum_shares(mesh, full)
     return _topk_lists(out[0], out[1], n_hash)

@@ -23,7 +23,10 @@ from dynaalign_torch.encode import ALPHABET, encode  # noqa: E402
 from dynaalign_torch.io.datasets import load_sequences  # noqa: E402
 from dynaalign_torch.ops import MAX_MP1, nw_batch, nw_cuda  # noqa: E402
 from dynaalign_torch.ops.nw import nw_similarity_batch  # noqa: E402
+from dynaalign_torch.ops import topk_cuda  # noqa: E402
+from dynaalign_torch.ops.topk_graph import _topk_block  # noqa: E402
 from dynaalign_torch.utils import profiling  # noqa: E402
+from test_torch_topk_kernel import _rising, _sparse, _tiny  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -511,6 +514,103 @@ def test_topk_tie_order_on_card(cuda, n, h, k, block):
         for i in range(n):
             np.testing.assert_array_equal(
                 idx[i], np.argsort(-counts[i], kind="stable")[: idx.shape[1]])
+
+
+# Inputs of the top-k kernel against the plain version: (signatures,
+# start, stop, k).
+_TOPK_CASES = {
+    "ties_k1": (_tiny(21, 3000, 8), 0, 3000, 1),
+    "ties_k32": (_tiny(22, 3000, 6), 0, 3000, 32),
+    "ties_k64": (_tiny(23, 3000, 5), 0, 3000, 64),
+    "ties_k_max": (_tiny(24, 3000, 4), 0, 3000, topk_cuda.MAX_K),
+    "all_equal": (np.full((1000, 5), 9, np.uint32), 0, 1000, 32),
+    "n1": (_tiny(26, 1, 4), 0, 1, 1),
+    "n2": (_tiny(27, 2, 4), 0, 2, 1),
+    "k_is_n_minus_1": (_tiny(28, 200, 8), 0, 200, 199),
+    "zero_fill": (_sparse(29, 5000, 50, planted=400), 0, 5000, 32),
+    "n_hash_1": (_tiny(30, 2000, 1), 0, 2000, 32),
+    "n_hash_50": (_tiny(31, 2000, 50, values=2), 0, 2000, 32),
+    "n_hash_255": (_tiny(32, 1000, 255, values=2), 0, 1000, 32),
+    "start_offset": (_tiny(33, 3000, 6), 700, 2300, 16),
+    "rising": (_rising(3000, 8), 0, 3000, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(_TOPK_CASES))
+def test_topk_kernel_equals_plain_on_card(cuda, case):
+    """_topk_block on the card equals it on the CPU, counts and indices
+    entry for entry, in one kernel launch for all the rows."""
+    sigs, start, stop, k = _TOPK_CASES[case]
+    host = torch.from_numpy(sigs.view(np.int32))
+    profiling.reset()
+    got_c, got_i = _topk_block(host.to(cuda), start, stop, k, block=64)
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    assert c["minhash_topk"] == c["topk.block"] == 1
+    assert c["minhash_topk.rows"] == c["topk.block.kernel_rows"] == (
+        stop - start)
+    assert c["topk.block.plain_rows"] == 0
+    want_c, want_i = _topk_block(host, start, stop, k)
+    assert got_c.device.type == "cuda" and got_c.dtype == torch.int64
+    np.testing.assert_array_equal(got_c.cpu().numpy(), want_c.numpy())
+    np.testing.assert_array_equal(got_i.cpu().numpy(), want_i.numpy())
+
+
+@pytest.mark.parametrize("n_hash, k", [
+    (4, topk_cuda.MAX_K + 1), (topk_cuda.MAX_N_HASH + 1, 32)],
+    ids=["ties_k_past_max", "n_hash_past_max"])
+def test_topk_kernel_raises_past_its_limits_on_card(cuda, n_hash, k):
+    """Past the kernel's k or n_hash the card raises before a launch: no
+    other version runs there; the CPU takes the call."""
+    host = torch.from_numpy(_tiny(25, 700, n_hash).view(np.int32))
+    profiling.reset()
+    with pytest.raises(ValueError, match="device='cpu' takes any"):
+        _topk_block(host.to(cuda), 0, 700, k)
+    torch.cuda.synchronize()
+    assert profiling.counters() == {}
+    c, i = _topk_block(host, 0, 700, k)
+    assert c.shape == i.shape == (700, k)
+
+
+def test_topk_kernel_equals_benchmark_reference_on_peptides(cuda):
+    """minhash_topk on the first 4,096 of data/peptides_100k.npz (the
+    cluster cell's warm call) in one kernel launch, against the benchmark's
+    plain reference, portbench/reference/cluster.topk_counts: the same
+    (row, column, count) entries."""
+    import json
+
+    from portbench.reference import cluster as ref_cluster
+    from portbench.reference import minhash as ref_minhash
+
+    from dynaalign_torch.ops import minhash
+    from dynaalign_torch.ops.topk_graph import minhash_topk
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "data", "peptides_100k.npz")) as z:
+        seqs = [str(x) for x in z["sequence"][:4096]]
+    with open(os.path.join(root, "portbench", "configs",
+                           "cluster_exact_top32.json")) as f:
+        s = json.load(f)["settings"]
+    enc = encode(seqs, validate=False)
+    sigs = minhash.minhash_signatures(enc.ascii, enc.lengths, k=s["k"],
+                                      n_hash=s["n_hash"], seed=s["seed"])
+    rsigs = ref_minhash.signatures(seqs, s["k"], s["n_hash"], s["seed"],
+                                   cuda)
+    assert torch.equal(sigs.long() & 0xFFFFFFFF, rsigs)
+    profiling.reset()
+    vals, idx = minhash_topk(sigs, k=s["top_k"])
+    c = profiling.counters()
+    assert c["topk.block"] == c["minhash_topk"] == 1
+    assert c["topk.block.plain_rows"] == 0
+    assert c["topk.block.kernel_rows"] == len(seqs)
+    n, k = idx.shape
+    rows = np.repeat(np.arange(n), k)
+    order = np.lexsort((idx.ravel(), rows))
+    r_rows, r_cols, r_cnt = ref_cluster.topk_counts(rsigs, s["top_k"])
+    np.testing.assert_array_equal(rows[order], r_rows)
+    np.testing.assert_array_equal(idx.ravel()[order], r_cols)
+    np.testing.assert_array_equal(
+        np.rint(vals.ravel()[order] * s["n_hash"]).astype(np.int64), r_cnt)
 
 
 def test_clustering_on_card_equals_cpu(cuda):

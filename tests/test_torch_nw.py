@@ -477,7 +477,7 @@ def test_launch_pointers_are_void_p():
 def test_build_targets_hopper_and_hashes_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     names = _build.sources()
-    assert names == ["nw_gotoh", "nw_gotoh_xl", "probe_shift"]
+    assert names == ["minhash_topk", "nw_gotoh", "nw_gotoh_xl", "probe_shift"]
     targets = [_build.target(name) for name in names]
     assert len(set(targets)) == len(names)  # each source its own library
     for name, tgt in zip(names, targets):
