@@ -19,7 +19,7 @@
 // the idea of its [6, MP1, B] score slab: a per-pair query profile.
 //
 // Design (the sweep itself is in csrc/nw_cell.cuh: nw_strip_sweep here,
-// nw_pair_sweep in csrc/nw_gotoh.cu and in the list-order variant below):
+// nw_pair_sweep in csrc/nw_gotoh.cu):
 // * A queue of strips, longest pair first.  The wrapper (ops/nw_cuda.py,
 //   xl_work_table) orders the pairs by a_len * b_len, descending, ties by
 //   index, and expands each into its ceil(a_len / (32 * XL_R)) strips in
@@ -62,7 +62,8 @@
 //   branches: about 100 SASS instructions) is shared by more cells.  With
 //   8 rows and 4 warps the long set took 72-74 ms, with 16 and 2 60-62 ms,
 //   with 20 and 2 59 ms, with 24 and 2 59 ms at 168 registers, all under
-//   the list-order schedule (tools/nw_variants.py; PERF.md has the runs).
+//   the one-warp-a-pair schedule the queue replaced (tools/nw_variants.py;
+//   the runs are in PERF.md and in git history).
 //   A strip waits and publishes every 32 steps (nw_cell.cuh), so it starts
 //   about 64-96 steps after the one above it.
 // * Scores: each strip builds the warp's query profile in shared memory
@@ -77,9 +78,6 @@
 // * Loads: at one step the lanes sit on 32 neighbouring columns, so the
 //   b-character loads coalesce; each lane fetches its next character, and
 //   lane 0 its next boundary cell, one step ahead.
-// * XL_QUEUE=0 builds the earlier schedule instead, one warp per pair in list
-//   order through nw_pair_sweep, for tools/nw_variants.py to time beside
-//   the queue; it takes the same arguments and ignores the table.
 //
 // Bound on this card: NW_OPS_PER_CELL = 12 integer operations per DP cell,
 // NW_ALU_OPS_PER_CELL = 8 of them on the integer ALU lanes alone (derived
@@ -102,9 +100,6 @@
 #ifndef XL_WARPS
 #define XL_WARPS 2            // warps per block
 #endif
-#ifndef XL_QUEUE
-#define XL_QUEUE 1            // 0: the list-order variant
-#endif
 #define XL_PLANES(NWD) (2 + (NWD))  // boundary row: M, Ix, path word(s)
 #define XL_PACK_LIMIT 65536  // padded M + N from which MT, LN take two words
 
@@ -125,7 +120,6 @@ __global__ void __launch_bounds__(XL_WARPS * 32) nw_gotoh_xl_kernel(
   constexpr int RW = (XL_R + 3) / 4;
   __shared__ __align__(16) int s_prof[NW_SYMS * XL_WARPS * 32 * RW];
   const int tid = threadIdx.x;
-#if XL_QUEUE
   int k = 0;  // the warp's ticket
   if ((tid & 31) == 0) k = atomicAdd(queue, 1);
   k = __shfl_sync(NW_FULL, k, 0);
@@ -136,15 +130,6 @@ __global__ void __launch_bounds__(XL_WARPS * 32) nw_gotoh_xl_kernel(
       sub_t, gap_open, gap_ext, s_prof + tid * RW, XL_WARPS * 32 * RW,
       bnd + p * XL_PLANES(NWD) * ((size_t)N + 1), N + 1, progress + k,
       out_mt + p, out_ln + p);
-#else
-  const size_t p = blockIdx.x * XL_WARPS + (tid >> 5);
-  if (p >= (size_t)B) return;  // the whole warp
-  nw_pair_sweep<32, XL_R, NWD>(
-      true, a_idx + p * M, b_idx + p * N, a_len[p], b_len[p], sub_t, gap_open,
-      gap_ext, s_prof + tid * RW, XL_WARPS * 32 * RW,
-      bnd + p * XL_PLANES(NWD) * ((size_t)N + 1), N + 1, out_mt + p,
-      out_ln + p);
-#endif
 }
 
 // Words MT and LN travel in at padded widths M, N: one where both stay
@@ -156,9 +141,9 @@ extern "C" int nw_gotoh_xl_words(int M, int N) {
 // DP rows a strip holds, the unit of the wrapper's table.
 extern "C" int nw_gotoh_xl_strip_rows() { return 32 * XL_R; }
 
-// The grid's blocks: a warp per item (the list-order variant: per pair).
-static int nw_gotoh_xl_blocks(int B, int n_items) {
-  return ((XL_QUEUE ? n_items : B) + XL_WARPS - 1) / XL_WARPS;
+// The grid's blocks: a warp per item.
+static int nw_gotoh_xl_blocks(int n_items) {
+  return (n_items + XL_WARPS - 1) / XL_WARPS;
 }
 
 #ifdef __CUDACC__
@@ -185,7 +170,7 @@ extern "C" int nw_gotoh_xl_launch(const void* a_idx, const void* a_len,
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (rc != cudaSuccess) return (int)rc;
-    const int blocks = nw_gotoh_xl_blocks(B, n_items);
+    const int blocks = nw_gotoh_xl_blocks(n_items);
     if (blocks > 0) {
       kernel<<<blocks, XL_WARPS * 32, 0, (cudaStream_t)stream>>>(
           (const int*)a_idx, (const int*)a_len, (const int*)b_idx,

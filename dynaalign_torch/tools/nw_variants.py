@@ -4,10 +4,8 @@
     python -m dynaalign_torch.tools.nw_variants --kernel nw_gotoh_xl XL_R=16
 
 Each argument is one variant: ``-D`` definitions joined by commas
-(``nw_gotoh``: NW_BLOCKS_PER_SM, NW_THREADS;
-``nw_gotoh_xl``: XL_R, XL_WARPS, and XL_QUEUE=0 for the
-list-order schedule that the queue of strips replaced).  The source as it
-stands is always the first variant.  Every variant is built with the flags of
+(``nw_gotoh``: NW_BLOCKS_PER_SM, NW_THREADS; ``nw_gotoh_xl``: XL_R,
+XL_WARPS).  The source as it stands is always the first variant.  Every variant is built with the flags of
 :mod:`dynaalign_torch.ops._build` plus its definitions, run on the first
 launch of ``similarity_nw`` on h3n2sample[:1000] (131,072 pairs of up to
 566 aa) and on all pairs of the evp_peparray 12-mers (``nw_gotoh``) or of

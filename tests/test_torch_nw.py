@@ -1,5 +1,7 @@
-"""The port's batched NW (plain version, kernel source, wrapper, dispatch,
-build) against the JAX package and the C++ oracle, on the CPU.
+"""The port's batched NW (plain version, wrapper, dispatch, build) against
+the JAX package and the C++ oracle, on the CPU.  The kernel source, run as
+threaded host C++: ``test_torch_nw_source.py`` and
+``test_torch_nw_source_tables.py``.
 
 Every comparison is exact: the reference is bit-exact.
 """
@@ -20,7 +22,6 @@ from dynaalign_tpu.ops.nw import nw_similarity_batch as jax_scan  # noqa: E402
 from dynaalign_tpu.ops.nw_pallas import (  # noqa: E402
     nw_similarity_batch_pallas,
 )
-from test_torch_harness import build_host, ptr  # noqa: E402
 
 from dynaalign_torch import blosum  # noqa: E402
 from dynaalign_torch.encode import ALPHABET, encode  # noqa: E402
@@ -134,233 +135,6 @@ def test_empty_pair_is_nan_like_jax():
     sims = NWResult(*[torch.from_numpy(x) for x in got]).similarity()
     assert np.isnan(sims[0]) and sims[1] == 0.0
     assert sims.dtype == np.float64
-
-
-# The kernel source compiled as host C++ and run threaded (the harness of
-# tests/test_torch_harness.py): every instantiation of NW_INSTANCES, with
-# its dynamic shared memory sized by the source's own function.  This checks
-# the kernel's DP arithmetic and its warp hand-offs here, where no nvcc
-# exists.
-_HOST_SHIM = r"""
-#define __shared__
-#include "nw_gotoh.cu"
-// past the card's 227 KB: here a short-strip instantiation also runs long
-// pairs, which the wrapper never sends it
-#define DYN_WORDS (1 << 20)
-alignas(16) int nw_dyn[DYN_WORDS];
-
-template <int G, int R>
-static int run_as(const int* a_idx, const int* a_len, const int* b_idx,
-                  const int* b_len, const int* sub, int B, int M, int N,
-                  int go, int ge, int a_max, int* mt, int* ln) {
-  int bnd_cols;
-  const size_t words = nw_gotoh_smem_words<G, R>(a_max, N, &bnd_cols);
-  if (words > DYN_WORDS) return -2;
-  const int pairs = NW_THREADS / G;
-  harness::launch((B + pairs - 1) / pairs, NW_THREADS, [&] {
-    nw_gotoh_kernel<G, R>(a_idx, a_len, b_idx, b_len, sub, B, M, N, go, ge,
-                          bnd_cols, mt, ln);
-  }, nw_dyn, words);
-  return 0;
-}
-
-extern "C" int nw_gotoh_host(const int* a_idx, const int* a_len,
-    const int* b_idx, const int* b_len, const int* sub, int B, int M, int N,
-    int go, int ge, int inst, int a_max, int* mt, int* ln) {
-  switch (inst) {
-#define CASE(I, G, R) case I: return run_as<G, R>(a_idx, a_len, b_idx, \
-    b_len, sub, B, M, N, go, ge, a_max, mt, ln);
-    NW_INSTANCES(CASE)
-  }
-  return -1;
-}
-"""
-
-INSTANCE_IDS = list(range(len(nw_cuda.INSTANCES)))
-
-
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    fn = build_host(tmp_path_factory.mktemp("nw_host"), "nw_gotoh",
-                    _HOST_SHIM).nw_gotoh_host
-    fn.restype = ctypes.c_int
-
-    def run(arrs, sub_np, go, ge, inst=None):
-        """Through instantiation ``inst``; None: the one the wrapper would
-        pick for the batch."""
-        a, la, b, lb = [np.ascontiguousarray(x, np.int32) for x in arrs]
-        bsz, m = a.shape
-        n = b.shape[1]
-        # the kernel takes the table transposed
-        sub_c = np.ascontiguousarray(np.asarray(sub_np).T, np.int32)
-        a_max = int(la.max()) if bsz else 0
-        if inst is None:
-            inst = nw_cuda.pick_instance(a_max)
-        mt, ln = np.full(bsz, -7, np.int32), np.full(bsz, -7, np.int32)
-        rc = fn(ptr(a), ptr(la), ptr(b), ptr(lb), ptr(sub_c), bsz, m, n, go,
-                ge, inst, a_max, ptr(mt), ptr(ln))
-        assert rc == 0, rc
-        return mt, ln
-
-    return run
-
-
-def _assert_source_equals_plain(host_kernel, arrs, matrix, go, ge, inst):
-    got = host_kernel(arrs, jblosum.get_matrix(matrix), go, ge, inst)
-    ref = _port(arrs, matrix, go, ge)
-    np.testing.assert_array_equal(got[0], ref[0])
-    np.testing.assert_array_equal(got[1], ref[1])
-
-
-def test_instances_mirror_the_source():
-    """ops/nw_cuda.py's INSTANCES, which it reads from csrc/nw_gotoh.cu's
-    NW_INSTANCES, is that list, in order of capacity, and pick_instance
-    takes the first that holds a_max."""
-    import re
-
-    with open(os.path.join(_build.CSRC, "nw_gotoh.cu")) as f:
-        src = f.read().replace("\\\n", " ")
-    line = re.search(r"#define NW_INSTANCES\(X\)(.*)", src).group(1)
-    found = [tuple(map(int, t)) for t in
-             re.findall(r"X\((\d+), (\d+), (\d+)\)", line)]
-    assert [(k, *gr) for k, gr in enumerate(nw_cuda.INSTANCES)] == found
-    caps = [g * r for g, r in nw_cuda.INSTANCES]
-    assert caps == sorted(set(caps)) and 64 % max(
-        g for g, _ in nw_cuda.INSTANCES) == 0
-    assert 2 * caps[-1] >= MAX_MP1 - 1  # two strips reach the widest pair
-    for k, cap in enumerate(caps):
-        assert nw_cuda.pick_instance(cap) == k
-        assert nw_cuda.pick_instance(cap + 1) == min(k + 1, len(caps) - 1)
-    assert nw_cuda.pick_instance(0) == 0
-    assert nw_cuda.pick_instance(MAX_MP1 - 1) == len(caps) - 1
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-@pytest.mark.parametrize("case", [
-    ("BLOSUM62", (10, 4), 12, 80, 12, 80),
-    ("BLOSUM45", (5, 1), 1, 40, 1, 40),
-    ("BLOSUM100", (12, 2), 1, 3, 30, 70),  # m != n, length-1 rows
-    ("BLOSUM90", (10, 4), 50, 90, 1, 10),
-])
-def test_kernel_source_equals_plain(host_kernel, case, inst):
-    """Every instantiation runs every batch: one whose strip is shorter
-    than a pair takes several strips."""
-    matrix, (go, ge), alo, ahi, blo, bhi = case
-    rng = np.random.default_rng(11)
-    arrs = _batch(_seqs(rng, 24, alo, ahi), _seqs(rng, 24, blo, bhi))
-    _assert_source_equals_plain(host_kernel, arrs, matrix, go, ge, inst)
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-def test_kernel_source_equals_oracle_on_h3n2(host_kernel, inst):
-    from dynaalign_torch.io.datasets import load_sequences
-
-    seqs = load_sequences("h3n2sample", 4 if inst < 2 else 8)
-    k = len(seqs)
-    pairs = [(seqs[i], seqs[j]) for i in range(k) for j in range(i, k)]
-    arrs = _batch([p[0] for p in pairs], [p[1] for p in pairs])
-    mt, ln = host_kernel(arrs, jblosum.get_matrix("BLOSUM62"), 10, 4, inst)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        sims = mt.astype(np.float64) / ln
-    np.testing.assert_array_equal(sims, _oracle(pairs))
-
-
-@pytest.mark.parametrize("gaps", GAPS)
-@pytest.mark.parametrize("matrix", jblosum.MATRIX_NAMES)
-def test_kernel_source_equals_plain_tables_and_gaps(host_kernel, matrix,
-                                                    gaps):
-    """All six tables x three gap settings, each batch through the
-    instantiation the wrapper picks for it (1-40 aa: the first three)."""
-    rng = np.random.default_rng(
-        20 + 3 * jblosum.MATRIX_NAMES.index(matrix) + GAPS.index(gaps))
-    hi = (12, 32, 40)[GAPS.index(gaps)]
-    arrs = _batch(_seqs(rng, 20, 1, hi), _seqs(rng, 20, 1, 40))
-    _assert_source_equals_plain(host_kernel, arrs, matrix, *gaps, None)
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-def test_kernel_source_capacity_edges(host_kernel, inst):
-    """a_len at the strip's capacity G * R and one to either side (the last
-    needs a second strip), at two strips and beyond, beside empty sides,
-    the empty pair and length 1; 7 pairs leave most of the last block's
-    groups idle."""
-    g, r = nw_cuda.INSTANCES[inst]
-    cap = g * r
-    rng = np.random.default_rng(50 + inst)
-    a_lens = [cap - 1, cap, cap + 1, 2 * cap, 2 * cap + 1, 0, 5, 0, 1, r,
-              r + 1]
-    b_lens = [12, 40, 3, 17, 9, 7, 0, 0, 1, 30, 2]
-    a = ["".join(rng.choice(list(ALPHABET), size=k)) for k in a_lens]
-    b = ["".join(rng.choice(list(ALPHABET), size=k)) for k in b_lens]
-    arrs = _batch(a, b, 2 * cap + 3, 45)
-    got = host_kernel(arrs, jblosum.get_matrix("BLOSUM62"), 10, 4, inst)
-    ref = _port(arrs)
-    np.testing.assert_array_equal(got[0], ref[0])
-    np.testing.assert_array_equal(got[1], ref[1])
-    assert list(got[0][5:8]) == [0, 0, 0] and list(got[1][5:8]) == [7, 5, 0]
-    part = tuple(x[:7] for x in arrs)
-    _assert_source_equals_plain(host_kernel, part, "BLOSUM62", 10, 4, inst)
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-def test_kernel_source_narrow_columns(host_kernel, inst):
-    """1-4 columns: the traceback turns at column 1, where each row takes
-    its diagonal from the column-0 border; rows over one to three strips."""
-    g, r = nw_cuda.INSTANCES[inst]
-    cap = g * r
-    rng = np.random.default_rng(60 + inst)
-    arrs = _batch(_seqs(rng, 24, max(1, cap // 2), 2 * cap + cap // 2),
-                  _seqs(rng, 24, 1, 4))
-    _assert_source_equals_plain(host_kernel, arrs, "BLOSUM80", 5, 1, inst)
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-def test_kernel_source_tie_heavy(host_kernel, inst):
-    """Low-complexity sequences under BLOSUM45 with gaps (5, 1): many cells
-    where diag == ix, diag == iy or ix == iy, so that a > in place of a >=
-    in the D > U > L order changes the path."""
-    rng = np.random.default_rng(70 + inst)
-    hi = min(nw_cuda.INSTANCES[inst][0] * nw_cuda.INSTANCES[inst][1] + 9, 90)
-    a = _seqs(rng, 32, 1, hi, "AAG")
-    b = _seqs(rng, 32, 1, 60, "AGG")
-    arrs = _batch(a, b)
-    _assert_source_equals_plain(host_kernel, arrs, "BLOSUM45", 5, 1, inst)
-    mt, ln = host_kernel(arrs, jblosum.get_matrix("BLOSUM45"), 5, 1, inst)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        np.testing.assert_array_equal(
-            mt.astype(np.float64) / ln,
-            _oracle(list(zip(a, b)), "BLOSUM45", 5, 1))
-
-
-@pytest.mark.parametrize("inst", INSTANCE_IDS)
-def test_kernel_source_reads_table_row_a_column_b(host_kernel, inst):
-    """A table that is not symmetric: the score of a cell is sub[a_i][b_j],
-    as in the plain version, not sub[b_j][a_i]."""
-    g, r = nw_cuda.INSTANCES[inst]
-    rng = np.random.default_rng(90 + inst)
-    sub_np = np.array(jblosum.get_matrix("BLOSUM50"), np.int32)
-    sub_np[:24, :24] += rng.integers(-3, 4, size=(24, 24), dtype=np.int32)
-    assert (sub_np != sub_np.T).any()
-    arrs = _batch(_seqs(rng, 40, 1, min(2 * g * r + 3, 120)),
-                  _seqs(rng, 40, 1, 50))
-    got = host_kernel(arrs, sub_np, 12, 2, inst)
-    ref = nw_similarity_batch(*[torch.from_numpy(x) for x in arrs],
-                              torch.from_numpy(sub_np), gap_open=12,
-                              gap_ext=2)
-    np.testing.assert_array_equal(got[0], ref.matches.numpy())
-    np.testing.assert_array_equal(got[1], ref.length.numpy())
-    flipped = host_kernel(arrs, sub_np.T, 12, 2, inst)
-    assert (flipped[0] != got[0]).any() or (flipped[1] != got[1]).any()
-
-
-def test_kernel_source_two_strips_at_full_width(host_kernel):
-    """The last instantiation over two strips with the widest padded b
-    (N = 1,119): 577-640 rows x 1,000-1,119 columns, m != n."""
-    rng = np.random.default_rng(80)
-    arrs = _batch(_seqs(rng, 2, 577, 640), _seqs(rng, 2, 1000, MAX_MP1 - 1),
-                  None, MAX_MP1 - 1)
-    assert nw_cuda.pick_instance(int(arrs[1].max())) == INSTANCE_IDS[-1]
-    _assert_source_equals_plain(host_kernel, arrs, "BLOSUM62", 10, 4, None)
 
 
 def test_dispatch_routes_by_device():
